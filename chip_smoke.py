@@ -23,13 +23,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
     busy share, and the chunk tail's device time per chunk beside the
     unfused composition's on the same chunk shapes);
  5. file path: process() on a 60 s WAV, output and state CSV checked;
- 6. prints the card line, the kernels JSON line and, last, the result
-    line {"ok": true, "device": {...}}.
+ 6. crossfade path: the same programme through xfade.process_array
+    (gate_ui 60 on the linear map = -40 dBFS, xfade_ms 200 = 5 frames,
+    pcm24): one fused chunk-tail launch per chunk and no standalone
+    overlap-add, both gate states, 60 s against the port's CPU run within
+    1e-5 with equal C1/C2 counts, and xfade.process() on the 60 s WAV
+    whose state CSV must show some frame with 0 < alpha < 1;
+ 7. FLAC path: the 60 s programme written as in.flac (PCM_24) by the
+    port, standard.process(in.flac -> out.flac) on the card; the output
+    decodes to phase 5's samples bit for bit; the native codec (built in
+    phase 2 from csrc/flac.cpp) must have been the reader and the writer;
+ 8. resume path: the same FLAC run with a checkpoint (256 frames per
+    chunk, a snapshot every 2 chunks), stopped by an exception from the
+    audio sink on its second flush, then rerun: the checkpoint is gone
+    and out.flac and the state CSV equal an uninterrupted run's bytes;
+ 9. prints the card line, the kernels JSON line and, last, the result
+    line {"ok": true, "device": {...}}. Each path (standard, xfade, flac,
+    resume) is driven with the launch counts set to 0 just before it and
+    read just after: `launches_by_path` holds those readings, `launches`
+    their sum.
 The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import re
@@ -380,6 +398,25 @@ def report_profile(prof, wall_s: float, top: int = 8):
         log(f"profile:   host   {us / 1e3:9.3f} ms  x{count:<5d} {key[:80]}")
 
 
+def reset_counts(cuda_ola):
+    """Set both launch counts to 0, just before a path is driven."""
+    cuda_ola.overlap_add_cuda.launches = 0
+    cuda_ola.chunk_tail_cuda.launches = 0
+
+
+def read_counts(cuda_ola, chunks: int, what: str) -> dict:
+    """The launch counts just after a path was driven; fails unless it
+    made one fused chunk-tail launch per chunk and no standalone
+    overlap-add launch."""
+    n_tail = cuda_ola.chunk_tail_cuda.launches
+    n_ola = cuda_ola.overlap_add_cuda.launches
+    if n_tail == 0 or n_tail != chunks or n_ola != 0:
+        fail(f"{what}: {n_tail} chunk-tail and {n_ola} overlap-add "
+             f"launches over {chunks} chunks (expected one chunk-tail "
+             f"launch per chunk and no overlap-add)")
+    return {"chunk_tail": n_tail, "overlap_add": n_ola}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -394,16 +431,28 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     sys.path.insert(0, HERE)
-    from tomatis_tpu_torch.models import standard
+    from tomatis_tpu_torch.models import standard, xfade
     from tomatis_tpu_torch.io import audio
-    from tomatis_tpu_torch.native.build import BUILD_LOG
+    from tomatis_tpu_torch.native.build import BUILD_LOG, load_library
     from tomatis_tpu_torch.ops import cuda_ola
     from tomatis_tpu_torch.utils.stateio import read_state_csv
 
     # -- 2. build ------------------------------------------------------------
+    # one compiler per source, started together: nvcc for the kernels,
+    # the host C++ compiler for the FLAC codec
     t0 = time.perf_counter()
-    cuda_ola.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = {"csrc/ola.cu": pool.submit(cuda_ola.build),
+                "csrc/flac.cpp": pool.submit(load_library, "flac")}
+        for src, job in jobs.items():
+            try:
+                job.result()
+            except Exception as e:   # reported, then the run fails
+                fail(f"{src} did not build: {e}")
+    log(f"build: {time.perf_counter() - t0:.1f} s (csrc/ola.cu with nvcc and "
+        f"csrc/flac.cpp with the host C++ compiler, in parallel; compiled in "
+        f"this run: {sorted(BUILD_LOG)}, a library newer than its source is "
+        f"kept)")
     for src, text in BUILD_LOG.items():
         for ln in ptxas_lines(text):
             log(f"ptxas {src}: {ln}")
@@ -420,20 +469,14 @@ def main() -> int:
     for run in ("cold", "warm"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda_ola.overlap_add_cuda.launches = 0
-        cuda_ola.chunk_tail_cuda.launches = 0
+        reset_counts(cuda_ola)
         t0 = time.perf_counter()
         y, stats = standard.process_array(x, SR, p, frames_per_chunk=1024,
                                           device="cuda", transport="pcm24")
         wall = time.perf_counter() - t0
-        n_tail = cuda_ola.chunk_tail_cuda.launches
-        n_ola = cuda_ola.overlap_add_cuda.launches
-        if n_tail == 0 or n_tail != stats["chunks"] or n_ola != 0:
-            fail(f"{run} run: {n_tail} chunk-tail and {n_ola} overlap-add "
-                 f"launches over {stats['chunks']} chunks (expected one "
-                 f"chunk-tail launch per chunk and no overlap-add)")
-        launches.setdefault("chunk_tail", n_tail)
-        launches.setdefault("overlap_add", n_ola)
+        counts = read_counts(cuda_ola, stats["chunks"], f"{run} run")
+        n_tail, n_ola = counts["chunk_tail"], counts["overlap_add"]
+        launches.setdefault("standard", counts)
         if y.shape != x.shape or not np.all(np.isfinite(y)):
             fail(f"main path output shape {y.shape} or non-finite values")
         if not (stats["c1_frames"] > 0 and stats["c2_frames"] > 0):
@@ -502,30 +545,175 @@ def main() -> int:
         f"{st_gpu['c2_frames']} equal")
 
     # -- 5. file path --------------------------------------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        ip, op = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.wav")
-        cp = os.path.join(tmp, "state.csv")
-        audio.write(ip, x60, SR, subtype="PCM_24")
-        fst = standard.process(ip, op, p, state_csv_path=cp, device="cuda")
-        meta = audio.info(op)
-        if meta.frames != len(x60) or meta.subtype != "PCM_24":
-            fail(f"file path wrote {meta}")
-        csvd = read_state_csv(cp)
-        n_rows = sum(1 for j in range(fst["n_frames"])
-                     if 0 <= -p.n_fft // 2 + j * p.hop < len(x60))
-        if (len(csvd["frame_idx"]) != n_rows
-                or not set(csvd["state"]) == {"C1", "C2"}):
-            fail(f"state CSV: {len(csvd['frame_idx'])} rows (expected "
-                 f"{n_rows}), states {set(csvd['state'])}")
-        log(f"file path: {meta.frames} frames PCM_24, {n_rows} CSV rows, "
-            f"wall {fst['wall_seconds']:.3f} s, realtime factor "
-            f"{fst['realtime_factor']:.2f}x")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    ip, op = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.wav")
+    cp = os.path.join(tmp, "state.csv")
+    audio.write(ip, x60, SR, subtype="PCM_24")
+    fst = standard.process(ip, op, p, state_csv_path=cp, device="cuda")
+    meta = audio.info(op)
+    if meta.frames != len(x60) or meta.subtype != "PCM_24":
+        fail(f"file path wrote {meta}")
+    csvd = read_state_csv(cp)
+    n_rows = sum(1 for j in range(fst["n_frames"])
+                 if 0 <= -p.n_fft // 2 + j * p.hop < len(x60))
+    if (len(csvd["frame_idx"]) != n_rows
+            or not set(csvd["state"]) == {"C1", "C2"}):
+        fail(f"state CSV: {len(csvd['frame_idx'])} rows (expected "
+             f"{n_rows}), states {set(csvd['state'])}")
+    log(f"file path: {meta.frames} frames PCM_24, {n_rows} CSV rows, "
+        f"wall {fst['wall_seconds']:.3f} s, realtime factor "
+        f"{fst['realtime_factor']:.2f}x")
+    y_wav, _ = audio.read(op)
 
-    # -- 6. result -----------------------------------------------------------
+    # -- 6. crossfade path ---------------------------------------------------
+    # gate_ui 60 on the linear map is -40 dBFS, the standard path's
+    # threshold; 200 ms is 5 frames of 2048 samples at 48 kHz
+    px = xfade.XfadeParams(gate_ui=60.0, xfade_ms=200.0)
+    if px.threshold_dbfs() != p.threshold_dbfs() or px.xfade_frames(SR) != 5:
+        fail(f"crossfade parameters: threshold {px.threshold_dbfs()}, "
+             f"{px.xfade_frames(SR)} frames")
+    for run in ("cold", "warm"):
+        reset_counts(cuda_ola)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yx, stx = xfade.process_array(x, SR, px, frames_per_chunk=1024,
+                                      device="cuda", transport="pcm24")
+        wall = time.perf_counter() - t0
+        counts = read_counts(cuda_ola, stx["chunks"], f"crossfade {run} run")
+        launches.setdefault("xfade", counts)
+        if yx.shape != x.shape or not np.all(np.isfinite(yx)):
+            fail(f"crossfade output shape {yx.shape} or non-finite values")
+        if not (stx["c1_frames"] > 0 and stx["c2_frames"] > 0):
+            fail(f"crossfade path: the gate never switched: {stx}")
+        if np.max(np.abs(yx)) > 0.999 + 1e-6:
+            fail("crossfade output exceeds the 0.999 peak limit")
+        log(f"crossfade path ({run}): {stx['chunks']} chunks, "
+            f"{counts['chunk_tail']} chunk-tail launches, "
+            f"{counts['overlap_add']} overlap-add launches, C1 "
+            f"{stx['c1_frames']} / C2 {stx['c2_frames']} frames, wall "
+            f"{wall:.3f} s, realtime factor {len(x) / SR / wall:.2f}x, "
+            f"stages {stx['timings']}")
+    yx_cpu, stx_cpu = xfade.process_array(x60, SR, px, device="cpu",
+                                          transport="pcm24")
+    yx_gpu, stx_gpu = xfade.process_array(x60, SR, px, device="cuda",
+                                          transport="pcm24")
+    dx_main = float(np.max(np.abs(yx[:upto] - yx_cpu[:upto])))
+    dx_60 = float(np.max(np.abs(yx_gpu - yx_cpu)))
+    if dx_main > 1e-5 or dx_60 > 1e-5:
+        fail(f"crossfade card vs CPU output: main {dx_main}, 60 s {dx_60} "
+             f"> 1e-5")
+    for k in ("n_frames", "c1_frames", "c2_frames"):
+        if stx_gpu[k] != stx_cpu[k]:
+            fail(f"crossfade card vs CPU {k}: {stx_gpu[k]} != {stx_cpu[k]}")
+    xop, xcp = os.path.join(tmp, "xf.wav"), os.path.join(tmp, "xf.csv")
+    xst = xfade.process(ip, xop, px, state_csv_path=xcp, device="cuda")
+    alpha = read_state_csv(xcp)["alpha"]
+    n_mid = int(np.sum((alpha > 0) & (alpha < 1)))
+    if n_mid == 0 or not (np.any(alpha == 0) and np.any(alpha == 1)):
+        fail(f"crossfade state CSV: {n_mid} frames with 0 < alpha < 1, "
+             f"range {alpha.min()}..{alpha.max()}")
+    xmeta = audio.info(xop)
+    if xmeta.frames != len(x60) or xmeta.subtype != "PCM_24":
+        fail(f"crossfade file path wrote {xmeta}")
+    log(f"crossfade cross-check vs CPU: max|d| main path {dx_main:.3e} "
+        f"(first {upto} samples), 60 s run {dx_60:.3e}; C1/C2 "
+        f"{stx_gpu['c1_frames']}/{stx_gpu['c2_frames']} equal; state CSV "
+        f"{len(alpha)} rows, {n_mid} with 0 < alpha < 1; file path wall "
+        f"{xst['wall_seconds']:.3f} s, realtime factor "
+        f"{xst['realtime_factor']:.2f}x")
+
+    # -- 7. FLAC path --------------------------------------------------------
+    fip, fop = os.path.join(tmp, "in.flac"), os.path.join(tmp, "out.flac")
+    fcp = os.path.join(tmp, "flac.csv")
+    t0 = time.perf_counter()
+    audio.write(fip, x60, SR, subtype="PCM_24")
+    enc_s = time.perf_counter() - t0
+    with audio.AudioFile(fip) as f:
+        reader = type(f._h).__name__
+    with audio.AudioFile(os.path.join(tmp, "probe.flac"), "w",
+                         samplerate=SR, channels=2) as f:
+        writer = type(f._h).__name__
+    if reader != "_NativeFlacReader" or writer != "FlacWriter":
+        fail(f"the native FLAC codec did not run: reader {reader}, writer "
+             f"{writer}")
+    reset_counts(cuda_ola)
+    flst = standard.process(fip, fop, p, state_csv_path=fcp, device="cuda")
+    launches["flac"] = read_counts(cuda_ola, flst["chunks"], "FLAC path")
+    if flst["out_path"] != fop or audio.info(fop).format != "FLAC":
+        fail(f"FLAC path wrote {flst['out_path']}")
+    y_flac, _ = audio.read(fop)
+    if y_flac.shape != y_wav.shape or not np.array_equal(y_flac, y_wav):
+        fail("FLAC path: out.flac does not decode to the WAV run's samples")
+    if open(fcp).read() != open(cp).read():
+        fail("FLAC path: state CSV differs from the WAV run's")
+    log(f"FLAC path: reader {reader}, writer {writer} (native, "
+        f"csrc/flac.cpp); in.flac {os.path.getsize(fip)} bytes encoded in "
+        f"{enc_s:.3f} s; out.flac {os.path.getsize(fop)} bytes decodes to "
+        f"the WAV run's {y_flac.shape[0]} frames bit for bit; state CSV "
+        f"equal; wall {flst['wall_seconds']:.3f} s, realtime factor "
+        f"{flst['realtime_factor']:.2f}x, stages {flst['timings']}")
+
+    # -- 8. resume path ------------------------------------------------------
+    ck = os.path.join(tmp, "ck.npz")
+    rop, rcp = os.path.join(tmp, "res.flac"), os.path.join(tmp, "res.csv")
+    uop, ucp = os.path.join(tmp, "unint.flac"), os.path.join(tmp, "unint.csv")
+    kw = dict(frames_per_chunk=256, device="cuda")
+    ust = standard.process(fip, uop, p, state_csv_path=ucp, **kw)
+
+    class SinkStopped(Exception):
+        pass
+
+    flushes = [0]
+    write_raw = standard._RawWav.write_raw
+
+    def stop_on_second(self, raw):
+        flushes[0] += 1
+        if flushes[0] > 1:
+            raise SinkStopped()
+        return write_raw(self, raw)
+
+    standard._RawWav.write_raw = stop_on_second
+    try:
+        standard.process(fip, rop, p, state_csv_path=rcp, checkpoint_path=ck,
+                         checkpoint_every=2, **kw)
+    except SinkStopped:
+        pass
+    else:
+        fail("resume path: the sink's exception did not stop the run")
+    finally:
+        standard._RawWav.write_raw = write_raw
+    if not os.path.exists(ck) or not os.path.exists(rop + ".part.wav"):
+        fail("resume path: no checkpoint or no staged WAV after the stop")
+    reset_counts(cuda_ola)
+    rst = standard.process(fip, rop, p, state_csv_path=rcp,
+                           checkpoint_path=ck, checkpoint_every=2, **kw)
+    launches["resume"] = read_counts(cuda_ola, rst["chunks"], "resume path")
+    if os.path.exists(ck) or os.path.exists(rop + ".part.wav"):
+        fail("resume path: the checkpoint or the staged WAV was left behind")
+    if not 0 < rst["chunks"] < ust["chunks"]:
+        fail(f"resume path: the rerun took {rst['chunks']} chunks of "
+             f"{ust['chunks']}: it did not resume mid-stream")
+    if open(rop, "rb").read() != open(uop, "rb").read() \
+            or open(rcp).read() != open(ucp).read():
+        fail("resume path: out.flac or the state CSV differs from the "
+             "uninterrupted run's")
+    same = np.array_equal(audio.read(uop)[0], y_flac)
+    log(f"resume path: stopped on flush 2, resumed with {rst['chunks']} of "
+        f"{ust['chunks']} chunks left; out.flac ({os.path.getsize(rop)} "
+        f"bytes) and the state CSV equal the uninterrupted run's byte for "
+        f"byte; checkpoint removed; the 256-frame run's samples "
+        f"{'equal' if same else 'differ from'} the 1024-frame run's")
+    tmp_dir.cleanup()
+
+    # -- 9. result -----------------------------------------------------------
     kernels = [dict(name=name, route="cuda",
                     source="tomatis_tpu_torch/csrc/ola.cu",
                     replaces="tomatis_tpu/ops/pallas_ola.py:75",
-                    launches=launches[name], bound_by="bytes", **res)
+                    launches=sum(c[name] for c in launches.values()),
+                    launches_by_path={k: c[name]
+                                      for k, c in launches.items()},
+                    bound_by="bytes", **res)
                for name, res in (("overlap_add", ola), ("chunk_tail", tail))]
     print(card)
     print(json.dumps({"kernels": kernels}))

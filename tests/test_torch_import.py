@@ -34,7 +34,23 @@ def test_port_imports_no_jax_and_no_reference():
                        capture_output=True, text=True, timeout=120, env=env)
     assert r.returncode == 0, r.stderr[-2000:]
     n = int(r.stdout.split("IMPORTED")[1])
-    assert n >= 20   # every module of every sub-package was imported
+    assert n >= 28   # every module of every sub-package was imported
+
+
+def test_new_modules_import_no_jax_and_no_reference():
+    """The crossfade model, the FLAC codec's binding and the checkpoint
+    manager, imported on their own in a fresh interpreter."""
+    code = ("import sys; sys.path.insert(0, %r); "
+            "import tomatis_tpu_torch.models.xfade, "
+            "tomatis_tpu_torch.io.flac, tomatis_tpu_torch.io.flac_py, "
+            "tomatis_tpu_torch.engine.checkpoint, "
+            "tomatis_tpu_torch.cli.process_xfade, "
+            "tomatis_tpu_torch.cli.convert; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tomatis_tpu')); assert not bad, bad" % REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 def test_entry_points_default_to_cuda():

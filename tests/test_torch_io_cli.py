@@ -1,4 +1,5 @@
-"""Port's host side: WAV I/O, transports, flush plan, CLI, refusals."""
+"""Port's host side: WAV and FLAC I/O, transports, flush plan, CLI,
+checkpoint flag, the one refusal left (wire), validate on its output."""
 import json
 
 import numpy as np
@@ -40,16 +41,28 @@ def test_wav_roundtrip_matches_reference(tmp_path, subtype):
 
 
 def test_flac_is_refused(tmp_path):
-    with pytest.raises(ValueError, match="FLAC is not yet ported"):
-        audio.AudioFile(tmp_path / "o.flac", "w", samplerate=48000,
-                        channels=2)
-    assert not (tmp_path / "o.flac").exists()
+    """The name is from when a .flac path was refused; the same calls now
+    succeed: a FLAC handle opens for write, and process() writes FLAC."""
+    with audio.AudioFile(tmp_path / "o.flac", "w", samplerate=48000,
+                         channels=2) as f:
+        assert f.format == "FLAC" and f.supports_raw
+    assert (tmp_path / "o.flac").exists()
     ip = tmp_path / "in.wav"
-    audio.write(ip, _tone(0.5), 48000)
-    with pytest.raises(ValueError, match="FLAC"):
-        standard.process(ip, tmp_path / "o.flac", device="cpu")
-    assert not (tmp_path / "o.flac").exists()
+    x = _tone(0.5)
+    audio.write(ip, x, 48000)
+    st = standard.process(ip, tmp_path / "o.flac", device="cpu")
+    assert st["out_path"] == str(tmp_path / "o.flac")
     assert not (tmp_path / "o.wav").exists()
+    meta = audio.info(tmp_path / "o.flac")
+    assert (meta.format, meta.subtype, meta.frames) == \
+        ("FLAC", "PCM_24", len(x))
+    # the same samples as the WAV run of the same input
+    standard.process(ip, tmp_path / "w.wav", device="cpu")
+    np.testing.assert_array_equal(audio.read(tmp_path / "o.flac")[0],
+                                  audio.read(tmp_path / "w.wav")[0])
+    with pytest.raises(ValueError, match="unsupported audio format"):
+        audio.AudioFile(tmp_path / "o.mp3", "w", samplerate=48000,
+                        channels=2)
 
 
 def test_pcm24_converters():
@@ -80,11 +93,19 @@ def test_flush_plan_matches_reference(total, n_fft, hop):
 
 
 def test_checkpoint_is_refused(tmp_path):
+    """The name is from when checkpoint_path was refused; the same call
+    now runs, leaves no checkpoint, and writes the uncheckpointed bytes."""
     ip = tmp_path / "in.wav"
     audio.write(ip, _tone(0.5), 48000)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        standard.process(ip, tmp_path / "o.wav", checkpoint_path="ck.npz",
-                         device="cpu")
+    ck = tmp_path / "ck.npz"
+    st = standard.process(ip, tmp_path / "o.wav", checkpoint_path=ck,
+                          checkpoint_every=1, frames_per_chunk=4,
+                          device="cpu")
+    assert st["chunks"] > 2 and not ck.exists()
+    standard.process(ip, tmp_path / "ref.wav", frames_per_chunk=4,
+                     device="cpu")
+    assert (tmp_path / "o.wav").read_bytes() == \
+        (tmp_path / "ref.wav").read_bytes()
 
 
 def test_all_invalid_chunk_freezes_carries():
@@ -138,8 +159,46 @@ def test_cli_process_on_cpu(tmp_path, capsys):
     assert side["tool"] == "process" and side["threshold_dbfs"] == -40.0
     csvd = read_state_csv(cp)
     assert set(csvd["state"]) == {"C1", "C2"}
-    # the checkpoint flag is refused with an error exit
-    assert cli_main.main(["process", "-i", str(ip), "-o", str(op),
-                          "--device", "cpu", "--checkpoint", "c.npz"]) == 1
+    # the checkpoint flag runs (FLAC in and out) and leaves no checkpoint
+    fi, fo, ck = tmp_path / "in.flac", tmp_path / "o.flac", tmp_path / "c.npz"
+    audio.write(fi, x, 48000)
+    assert cli_main.main(["process", "-i", str(fi), "-o", str(fo),
+                          "--device", "cpu", "--checkpoint", str(ck),
+                          "--checkpoint_every", "1",
+                          "--frames_per_chunk", "16"]) == 0
+    assert not ck.exists() and audio.info(fo).frames == len(x)
+    np.testing.assert_array_equal(audio.read(fo)[0], audio.read(op)[0])
+    # the wire transport is still refused, before the output is touched
+    before = fo.read_bytes()
+    assert cli_main.main(["process", "-i", str(fi), "-o", str(fo),
+                          "--device", "cpu", "--transport", "wire"]) == 1
+    assert fo.read_bytes() == before
     assert cli_main.main(["nope"]) == 2
     assert cli_main.main([]) == 0
+
+
+def test_reference_validate_passes_on_port_output(tmp_path, capsys):
+    """The JAX package's `validate`, with no parameter flags, on a FLAC the
+    port processed on CPU and the sidecar the port's CLI wrote: exit 0.
+    The signal is broadband noise with a loud middle 3 s (the conditional
+    spectrum needs broadband content; the quiet floor sits above the
+    -60 dBFS stable-frame cutoff, the loud part low enough that +15 dB
+    keeps the peak under 0.98)."""
+    from tomatis_tpu.cli import validate as j_validate
+    rng = np.random.default_rng(11)
+    n = 8 * 48000
+    amp = np.full(n, 0.005)
+    amp[int(2.5 * 48000):int(5.5 * 48000)] = 0.05
+    x = np.clip(0.4 * rng.standard_normal((n, 2)) * amp[:, None],
+                -0.98, 0.98).astype(np.float32)
+    ip, op, cp = (str(tmp_path / f) for f in ("in.flac", "out.flac", "s.csv"))
+    audio.write(ip, x, 48000, subtype="PCM_24")
+    assert cli_main.main(["process", "-i", ip, "-o", op, "--state_csv", cp,
+                          "--gate_ui", "50", "--gate_mode", "log_percent",
+                          "--device", "cpu"]) == 0
+    side = json.loads(open(op + ".params.json").read())
+    assert side["gate_scale"] == 0.0 and side["gate_offset"] == -40.0
+    rc = j_validate.main(["-i", ip, "-o", op, "--state_csv", cp,
+                          "--out_csv", str(tmp_path / "spec.csv"),
+                          "--out_png", str(tmp_path / "spec.png")])
+    assert rc == 0, capsys.readouterr().out[-3000:]

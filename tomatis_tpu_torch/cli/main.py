@@ -1,8 +1,8 @@
 """CLI dispatcher of the PyTorch port:
 `python -m tomatis_tpu_torch.cli.main <command> ...`.
 
-Only `process` is ported so far; the other commands of
-tomatis_tpu/cli/main.py are queued in ROADMAP.md.
+`process`, `process-xfade` and `convert` are ported so far; the other
+commands of tomatis_tpu/cli/main.py are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -12,6 +12,10 @@ import sys
 COMMANDS = {
     "process": ("tomatis_tpu_torch.cli.process",
                 "standard gate-controlled C1/C2 tilt processor"),
+    "process-xfade": ("tomatis_tpu_torch.cli.process_xfade",
+                      "processor with crossfade state transitions"),
+    "convert": ("tomatis_tpu_torch.cli.convert",
+                "convert audio between WAV and FLAC"),
 }
 
 

@@ -1,10 +1,10 @@
 """CLI: standard Tomatis processor on the PyTorch port.
 
-    python -m tomatis_tpu_torch.cli.main process -i in.wav -o out.wav --gate_ui 50
+    python -m tomatis_tpu_torch.cli.main process -i in.flac -o out.flac --gate_ui 50
 
 Takes the reference flags (tomatis_tpu/cli/process.py). --device picks the
 card (default cuda); --profile_dir writes a torch.profiler trace;
---checkpoint is refused (checkpoint/resume is not yet ported).
+--checkpoint names a checkpoint file for crash recovery.
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="calibration(.json) from calibrate/calibrate-v2: "
                          "overrides gate_ui/scale/offset/hyst/up_delay")
     ap.add_argument("--checkpoint", default=None,
-                    help="not yet ported: refused")
+                    help="checkpoint file for crash recovery: re-running "
+                         "the same command resumes from it")
     ap.add_argument("--checkpoint_every", type=int, default=8,
                     help="chunks between checkpoints (with --checkpoint)")
     ap.add_argument("--profile_dir", default=None,
@@ -84,7 +85,8 @@ def run(args) -> int:
                   f"({100 * done / max(1, total_frames):.0f}%)", flush=True)
     kw = dict(state_csv_path=args.state_csv,
               frames_per_chunk=args.frames_per_chunk,
-              checkpoint_path=args.checkpoint, progress=prog,
+              checkpoint_path=args.checkpoint,
+              checkpoint_every=args.checkpoint_every, progress=prog,
               transport=args.transport, device=args.device)
     if args.profile_dir:
         import os

@@ -12,8 +12,10 @@ import dataclasses
 
 import numpy as np
 
-from tomatis_tpu_torch.models.controllers import GateSelectController
+from tomatis_tpu_torch.models.controllers import (GateSelectController,
+                                                  GateXfadeController)
 from tomatis_tpu_torch.models.standard import StandardParams
+from tomatis_tpu_torch.models.xfade import XfadeParams
 from tomatis_tpu_torch.utils.device import resolve_device
 
 
@@ -31,10 +33,38 @@ def controller_from_reference(table, ton, toff, delay_frames: int,
                                 int(delay_frames)).to(resolve_device(device))
 
 
-def standard_params_from_dict(d: dict) -> StandardParams:
-    """StandardParams from ``dataclasses.asdict`` of the reference's."""
-    names = {f.name for f in dataclasses.fields(StandardParams)}
+def xfade_controller_from_reference(g1_db, g2_db, ton, toff, alpha_step,
+                                    delay_frames: int,
+                                    device="cuda") -> GateXfadeController:
+    """Build the port's crossfade controller from the reference
+    controller's ``params()`` (the two dB curves [bins], ton, toff and
+    alpha_step as numpy values) and its ``delay_frames``."""
+    g1_db, g2_db = np.asarray(g1_db, np.float32), np.asarray(g2_db, np.float32)
+    if g1_db.ndim != 1 or g1_db.shape != g2_db.shape:
+        raise ValueError(f"expected two [bins] dB curves, got "
+                         f"{g1_db.shape} and {g2_db.shape}")
+    ctl = GateXfadeController(g1_db.copy(), g2_db.copy(),
+                              float(np.float32(ton)), float(np.float32(toff)),
+                              int(delay_frames), 1)
+    # the step itself, not a frame count: 1/n in float32 stays the
+    # reference's value bit for bit
+    ctl.alpha_step.fill_(float(np.float32(alpha_step)))
+    return ctl.to(resolve_device(device))
+
+
+def _params_from_dict(cls, d: dict):
+    names = {f.name for f in dataclasses.fields(cls)}
     unknown = set(d) - names
     if unknown:
-        raise ValueError(f"unknown StandardParams fields: {sorted(unknown)}")
-    return StandardParams(**d)
+        raise ValueError(f"unknown {cls.__name__} fields: {sorted(unknown)}")
+    return cls(**d)
+
+
+def standard_params_from_dict(d: dict) -> StandardParams:
+    """StandardParams from ``dataclasses.asdict`` of the reference's."""
+    return _params_from_dict(StandardParams, d)
+
+
+def xfade_params_from_dict(d: dict) -> XfadeParams:
+    """XfadeParams from ``dataclasses.asdict`` of the reference's."""
+    return _params_from_dict(XfadeParams, d)

@@ -15,9 +15,11 @@ tomatis_tpu/engine/streaming.py.
   samples with per-flush peak clamping to 0.999, via an explicit flush
   plan (flush boundaries change the audible output).
 
-This slice dispatches single-threaded and in order; the reference's
+The stream loop dispatches single-threaded and in order; the reference's
 threaded pipeline and process staging hide a tunnelled link and are
-queued in ROADMAP.md, as are the wire transport and checkpoint/resume.
+queued in ROADMAP.md, as is the wire transport. Checkpoint/resume
+(engine/checkpoint.py) snapshots the stream state between chunks, under
+the reference's .npz key names.
 """
 from __future__ import annotations
 
@@ -242,6 +244,29 @@ def _host(t) -> np.ndarray:
     return np.asarray(t)
 
 
+def _carry_leaves(carry) -> list:
+    """A controller carry (a tensor, or a tuple of carries) -> its tensors
+    in order."""
+    if isinstance(carry, (tuple, list)):
+        return [leaf for c in carry for leaf in _carry_leaves(c)]
+    return [carry]
+
+
+def _carry_like(carry, leaves: list):
+    """Rebuild a carry of `carry`'s structure from `leaves` (consumed from
+    the front)."""
+    if isinstance(carry, (tuple, list)):
+        return tuple(_carry_like(c, leaves) for c in carry)
+    return leaves.pop(0)
+
+
+def _joined(pieces: list, empty_dtype) -> np.ndarray:
+    """Pending pieces as one array (an empty one of empty_dtype for none)."""
+    if not pieces:
+        return np.zeros(0, empty_dtype)
+    return pieces[0] if len(pieces) == 1 else np.concatenate(pieces)
+
+
 class StreamRunner:
     """Runs a controller over an audio stream with reference write semantics.
 
@@ -301,8 +326,16 @@ class StreamRunner:
         return F_c
 
     def run(self, source, on_audio: Callable | None = None,
-            on_frames: Callable | None = None,
+            on_frames: Callable | None = None, ckpt=None,
+            resume_state: dict | None = None,
             on_progress: Callable | None = None) -> dict:
+        """ckpt: optional engine.checkpoint.CheckpointManager; the stream
+        state is saved before the dispatch of every ckpt.every-th chunk.
+        resume_state: a state dict previously returned by ckpt.load(); the
+        caller must position its sinks at the offsets in
+        resume_state["__meta__"]["scalars"] (audio_samples_written,
+        frames_consumed) before calling."""
+        t_run = time.perf_counter()
         eng, plan = self.engine, self.plan
         hop, C = eng.hop, eng.channels
         pad, n_frames = plan.pad, plan.n_frames
@@ -318,18 +351,84 @@ class StreamRunner:
         pcm24 = self.transport == "pcm24"
         sink = SinkState(pad)
         self.audio_samples_written = 0
-        reader = RollingReader(_read_fn(source), C, dtype=np.float32,
-                               left_pad=pad, base=-pad, block=eng.emit_len)
-
-        timings = {"input_host_s": 0.0, "dispatch_compute_s": 0.0,
-                   "consume_s": 0.0}
         frame0 = 0
+
+        if resume_state is not None:
+            sc = resume_state["__meta__"]["scalars"]
+            frame0 = int(sc["frame0"])
+            sink.out_base = int(sc["out_base"])
+            sink.cut_i = int(sc["cut_i"])
+            self.audio_samples_written = int(sc["audio_samples_written"])
+            sink.states_count = resume_state["states_count"].copy()
+            leaves = [torch.as_tensor(resume_state[f"carry{i}"],
+                                      device=eng.device)
+                      for i in range(int(sc["n_carry_leaves"]))]
+            ctl_carry = _carry_like(ctl_carry, leaves)
+            out_tail = torch.as_tensor(resume_state["out_tail"],
+                                       device=eng.device)
+            w_tail = torch.as_tensor(resume_state["w_tail"],
+                                     device=eng.device)
+            if resume_state["out_pend"].size:
+                sink.out_pend = [resume_state["out_pend"]]
+            if resume_state["peak_pend"].size:
+                sink.peak_pend = [resume_state["peak_pend"]]
+            fr = resume_state.get("ref_floats")
+            if fr is not None and fr.size:
+                # the pre-quantisation floats of the pending samples, held
+                # on the host from here on (_gather_floats takes both)
+                sink.float_refs = [(sink.out_base, len(fr), fr)]
+
+        # rolling input in absolute sample coordinates (the stream starts
+        # at -pad); a resumed run seeks the source to its first chunk
+        in_base = -pad + frame0 * hop
+        if in_base > 0:
+            if isinstance(source, np.ndarray):
+                source = source[in_base:]
+            else:
+                source.seek(in_base)
+        reader = RollingReader(_read_fn(source), C, dtype=np.float32,
+                               left_pad=max(0, -in_base), base=in_base,
+                               block=eng.emit_len)
+
+        def save_checkpoint():
+            """The state before the dispatch of the chunk at frame0, as
+            host copies. The loop is single-threaded, so every earlier
+            chunk is already routed and drained."""
+            buf = _joined(sink.out_pend, np.uint8 if pcm24 else np.float32)
+            n_pend = len(buf) // (C * 3 if pcm24 else 1)
+            refs = (self._gather_floats(sink.float_refs, sink.out_base,
+                                        sink.out_base + n_pend, C)
+                    if pcm24 and n_pend else np.zeros((0, C), np.float32))
+            leaves = [_host(leaf) for leaf in _carry_leaves(ctl_carry)]
+            state = {f"carry{i}": leaf for i, leaf in enumerate(leaves)}
+            state.update(out_tail=_host(out_tail), w_tail=_host(w_tail),
+                         out_pend=buf,
+                         peak_pend=_joined(sink.peak_pend, np.float32),
+                         ref_floats=refs, states_count=sink.states_count)
+            state["__scalars__"] = dict(
+                frame0=int(frame0), out_base=int(sink.out_base),
+                cut_i=int(sink.cut_i), n_carry_leaves=len(leaves),
+                audio_samples_written=int(self.audio_samples_written),
+                frames_consumed=int(frame0))
+            ckpt.maybe_save(state, force=True)
+
+        # host wall time per stage: runner set-up (here: carries, tails,
+        # resume and the reader; the caller adds the runner's
+        # construction), input assembly + upload, chunk step enqueue,
+        # readback + routing + sink writes (the readback waits for the
+        # device), and the final drain (stream tail and the last flush cut)
+        timings = {"runner_setup_s": 0.0, "input_host_s": 0.0,
+                   "dispatch_compute_s": 0.0, "consume_s": 0.0,
+                   "final_drain_s": 0.0}
         chunks = 0
         last_full = False
+        timings["runner_setup_s"] = time.perf_counter() - t_run
         while frame0 < n_frames:
             eng_i, fn_i = self._by_F[self._chunk_F(frame0)]
             nf = min(eng_i.frames_per_chunk, n_frames - frame0)
             last_full = nf == eng_i.frames_per_chunk
+            if ckpt is not None and chunks > 0 and chunks % ckpt.every == 0:
+                save_checkpoint()
 
             t0 = time.perf_counter()
             sig = reader.window(-pad + frame0 * hop, eng_i.chunk_input_len)
@@ -352,10 +451,14 @@ class StreamRunner:
                 reader.advance(-pad + frame0 * hop)
             if on_progress is not None:
                 on_progress(frame0, n_frames)
-        # if the last chunk was full, the stream's tail is still in the carry
+        # if the last chunk was full, the stream's tail is still in the
+        # carry (a checkpoint is always taken before a chunk's dispatch, so
+        # a resumed run re-enters the loop and derives last_full again)
+        t0 = time.perf_counter()
         if last_full:
             sink.append_tail(self, eng, n_frames, out_tail, w_tail, pcm24)
         sink.final_drain(self, on_audio)
+        timings["final_drain_s"] = time.perf_counter() - t0
 
         sc_ = sink.states_count
         total_f = int(sc_[1] + sc_[2])
@@ -366,9 +469,6 @@ class StreamRunner:
             c1_ratio=sc_[1] / total_f if total_f else 0.0,
             c2_ratio=sc_[2] / total_f if total_f else 0.0,
             chunks=chunks,
-            # host wall time per stage: input assembly + upload, chunk step
-            # enqueue, readback + routing + sink writes (the readback waits
-            # for the device)
             timings={k: round(v, 4) for k, v in timings.items()},
         )
         return self.stats
@@ -386,14 +486,11 @@ class StreamRunner:
             avail = sum(len(a) for a in out_pend) // unit
             if not final and avail < (start - out_base) + n:
                 break
-            buf = np.concatenate(out_pend, 0) if len(out_pend) > 1 \
-                else (out_pend[0] if out_pend else
-                      np.zeros(0, np.uint8 if pcm24 else np.float32))
+            buf = _joined(out_pend, np.uint8 if pcm24 else np.float32)
             rel = start - out_base
             chunk = buf[rel * unit:(rel + n) * unit]
             if pcm24:
-                pk = np.concatenate(peak_pend) if len(peak_pend) != 1 \
-                    else peak_pend[0]
+                pk = _joined(peak_pend, np.float32)
                 self._write_cut_pcm24(chunk, pk, float_refs, start, n,
                                       out_base, on_audio)
                 nblk = (rel + n) // hop  # cut boundaries lie on the lattice

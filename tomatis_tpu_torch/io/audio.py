@@ -1,13 +1,15 @@
-"""Audio file I/O facade, port of tomatis_tpu/io/audio.py (WAV only).
+"""Audio file I/O facade, port of tomatis_tpu/io/audio.py.
+
+- WAV (RIFF) PCM 16/24/32 + float32: pure Python (io.wav)
+- FLAC: native C++ codec (csrc/flac.cpp, ctypes-bound, io.flac), with a
+  pure-Python fallback decoder (io.flac_py) for machines without a
+  compiler.
 
 API shape mirrors the subset of soundfile the processors use:
     info(path) -> Info(samplerate, channels, frames, format, subtype)
     read(path, frames=-1, start=0, dtype='float32', always_2d=True)
     write(path, data, samplerate, subtype='PCM_24')
     AudioFile(path, 'r'|'w', ...) -- streaming handle with .read/.write/.seek
-
-FLAC is not yet ported: a .flac path raises ValueError rather than
-writing some other container.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from tomatis_tpu_torch.io import flac as _flac
 from tomatis_tpu_torch.io import wav as _wav
 
 
@@ -37,9 +40,9 @@ def _fmt_of(path) -> str:
     if ext in (".wav", ".wave"):
         return "WAV"
     if ext == ".flac":
-        raise ValueError(f"{path!r}: FLAC is not yet ported to the PyTorch "
-                         "package (queued in ROADMAP.md); use a .wav path")
-    raise ValueError(f"unsupported audio format: {path!r} (WAV supported)")
+        return "FLAC"
+    raise ValueError(
+        f"unsupported audio format: {path!r} (WAV/FLAC supported)")
 
 
 class AudioFile:
@@ -51,7 +54,10 @@ class AudioFile:
         self.mode = mode
         self.format = _fmt_of(self.path)
         if mode == "r":
-            self._h = _wav.WavReader(self.path)
+            if self.format == "WAV":
+                self._h = _wav.WavReader(self.path)
+            else:
+                self._h = _flac.FlacReader(self.path)
             self.samplerate = self._h.samplerate
             self.channels = self._h.channels
             self.frames = self._h.frames
@@ -62,8 +68,12 @@ class AudioFile:
             self.samplerate = int(samplerate)
             self.channels = int(channels)
             self.subtype = subtype
-            self._h = _wav.WavWriter(self.path, self.samplerate,
-                                     self.channels, subtype)
+            if self.format == "WAV":
+                self._h = _wav.WavWriter(self.path, self.samplerate,
+                                         self.channels, subtype)
+            else:
+                self._h = _flac.FlacWriter(self.path, self.samplerate,
+                                             self.channels, subtype)
             self.frames = 0
         else:
             raise ValueError(f"bad mode {mode!r}")

@@ -1,0 +1,163 @@
+"""FLAC reader/writer over the native C++ codec (csrc/flac.cpp), a copy of
+tomatis_tpu/io/flac.py without ``read_int24`` (the wire-input path, not yet
+ported).
+
+Same float32 surface as io.wav: samples are normalized to [-1, 1) on read
+and quantized with round-half-even + clip on write (PCM_16 / PCM_24
+subtypes)."""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from tomatis_tpu_torch.native.build import load_library
+from tomatis_tpu_torch.utils.pcm import i32_from_le24
+
+def _scale(bits: int) -> float:
+    """Full-scale divisor 2^(bits-1) — any legal FLAC depth (4-32),
+    including the 12/20-bit files some capture tools emit."""
+    return float(1 << (bits - 1))
+
+
+_SUBTYPE_BITS = {"PCM_16": 16, "PCM_24": 24}
+
+
+class _FlacInfoC(ctypes.Structure):
+    _fields_ = [("sample_rate", ctypes.c_int32),
+                ("channels", ctypes.c_int32),
+                ("bits_per_sample", ctypes.c_int32),
+                ("total_samples", ctypes.c_int64)]
+
+
+def _lib():
+    lib = load_library("flac")
+    lib.tflac_open_read.restype = ctypes.c_void_p
+    lib.tflac_open_read.argtypes = [ctypes.c_char_p,
+                                    ctypes.POINTER(_FlacInfoC)]
+    lib.tflac_read.restype = ctypes.c_long
+    lib.tflac_read.argtypes = [ctypes.c_void_p,
+                               ctypes.POINTER(ctypes.c_int32), ctypes.c_long]
+    lib.tflac_seek.restype = ctypes.c_int
+    lib.tflac_seek.argtypes = [ctypes.c_void_p, ctypes.c_long]
+    lib.tflac_close_read.argtypes = [ctypes.c_void_p]
+    lib.tflac_open_write.restype = ctypes.c_void_p
+    lib.tflac_open_write.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int]
+    lib.tflac_write.argtypes = [ctypes.c_void_p,
+                                ctypes.POINTER(ctypes.c_int32), ctypes.c_long]
+    lib.tflac_close_write.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def FlacReader(path):
+    """Open a FLAC file for reading: native codec when buildable, else
+    the pure-Python fallback decoder (io.flac_py) — same surface, so
+    machines without g++ can still read FLAC (write falls back to WAV
+    at the model layer, see models/standard.py). ValueError (the native
+    codec declined the file — e.g. 32-bit streams, whose 33-bit side
+    channel needs the pure decoder's arbitrary-width path) also falls
+    back; if the file is genuinely corrupt the pure decoder's error
+    propagates."""
+    try:
+        return _NativeFlacReader(path)
+    except (RuntimeError, OSError, ValueError):
+        from tomatis_tpu_torch.io.flac_py import PureFlacReader
+        return PureFlacReader(path)
+
+
+class _NativeFlacReader:
+    def __init__(self, path):
+        self._lib = _lib()
+        info = _FlacInfoC()
+        self._h = self._lib.tflac_open_read(str(path).encode(),
+                                            ctypes.byref(info))
+        if not self._h:
+            raise ValueError(f"cannot open FLAC file: {path}")
+        self.samplerate = info.sample_rate
+        self.channels = info.channels
+        self.bits = info.bits_per_sample
+        self.frames = int(info.total_samples)
+        self.subtype = f"PCM_{self.bits}"
+        self._pos = 0
+
+    def read(self, n_frames: int = -1) -> np.ndarray:
+        if n_frames < 0:
+            n_frames = max(0, self.frames - self._pos)
+        buf = np.empty(n_frames * self.channels, np.int32)
+        got = self._lib.tflac_read(
+            self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            n_frames)
+        self._pos += got
+        x = buf[:got * self.channels].astype(np.float32) / _scale(self.bits)
+        return x.reshape(-1, self.channels)
+
+    def seek(self, frame: int) -> int:
+        frame = max(0, min(frame, self.frames))
+        if self._lib.tflac_seek(self._h, frame) != 0:
+            raise IOError("FLAC seek failed")
+        self._pos = frame
+        return frame
+
+    def tell(self) -> int:
+        return self._pos
+
+    def close(self):
+        if self._h:
+            self._lib.tflac_close_read(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+
+
+class FlacWriter:
+    def __init__(self, path, samplerate: int, channels: int,
+                 subtype: str = "PCM_24"):
+        if subtype not in _SUBTYPE_BITS:
+            raise ValueError(f"unsupported FLAC subtype {subtype}")
+        self._lib = _lib()
+        self.samplerate = samplerate
+        self.channels = channels
+        self.subtype = subtype
+        self.bits = _SUBTYPE_BITS[subtype]
+        self._h = self._lib.tflac_open_write(str(path).encode(),
+                                             samplerate, channels, self.bits)
+        if not self._h:
+            raise ValueError(f"cannot open FLAC file for write: {path}")
+
+    def write(self, data: np.ndarray):
+        data = np.asarray(data, np.float32)
+        if data.ndim == 1:
+            data = data[:, None]
+        if data.shape[1] != self.channels:
+            raise ValueError("channel mismatch")
+        s = _scale(self.bits)
+        v = np.clip(np.rint(data * s), -s, s - 1).astype(np.int32)
+        flat = np.ascontiguousarray(v.reshape(-1))
+        self._lib.tflac_write(
+            self._h, flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            len(data))
+
+    def write_raw(self, raw):
+        """Device-packed little-endian PCM_24 bytes -> int32 -> encoder."""
+        if self.bits != 24:
+            raise ValueError("write_raw requires PCM_24")
+        v = i32_from_le24(np.frombuffer(bytes(raw), np.uint8))
+        self._lib.tflac_write(
+            self._h, v.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            len(v) // self.channels)
+
+    def close(self):
+        if self._h:
+            self._lib.tflac_close_write(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()

@@ -1,5 +1,5 @@
 """Pure-Python WAV (RIFF) reader/writer, a copy of tomatis_tpu/io/wav.py
-without the checkpoint and wire-input paths (not yet ported).
+without the wire-input path (not yet ported).
 
 Supports PCM 16/24/32-bit and IEEE float32, mono/stereo/N-channel,
 streaming reads (arbitrary frame ranges) and streaming writes with header
@@ -182,6 +182,44 @@ class WavWriter:
         self._f = open(path, "wb")
         self._data_bytes = 0
         self._write_header(0)
+
+    @classmethod
+    def reopen(cls, path, frames: int) -> "WavWriter":
+        """Reopen an existing WAV for appending after truncating to
+        `frames` sample frames (checkpoint/resume support).
+
+        Trusts the bytes on disk, not the header's data size: a writer
+        killed by SIGKILL never ran the close-time header fixup, so the
+        header still says 0 frames while the audio bytes are all there."""
+        with open(path, "rb") as f:
+            info = _parse_header(f)
+            end = f.seek(0, 2)
+        if info.data_offset != 44:
+            # close() rewrites the canonical 44-byte header at offset 0;
+            # resuming a WAV with extra pre-data chunks (not one of ours)
+            # would shift where readers think the samples start
+            raise ValueError(
+                f"cannot resume {path!r}: data chunk at offset "
+                f"{info.data_offset}, not a WavWriter stage file")
+        on_disk = max(0, end - info.data_offset) // info.bytes_per_frame
+        if on_disk < frames:
+            # the checkpoint promises more audio than the stage holds
+            # (power loss can persist the renamed checkpoint but not the
+            # buffered stage pages) — resuming would silently drop the
+            # gap and shift everything after it
+            raise ValueError(
+                f"stage file holds {on_disk} frames but the checkpoint "
+                f"expects {frames}; delete the checkpoint to restart")
+        w = cls.__new__(cls)
+        w.samplerate = info.samplerate
+        w.channels = info.channels
+        w.subtype = info.subtype
+        keep = min(frames, on_disk) * info.bytes_per_frame
+        w._f = open(path, "r+b")
+        w._f.truncate(info.data_offset + keep)
+        w._f.seek(info.data_offset + keep)
+        w._data_bytes = keep
+        return w
 
     def _write_header(self, data_size: int):
         fmt_code, bits = _SUBTYPE_FMT[self.subtype]

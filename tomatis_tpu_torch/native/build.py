@@ -1,11 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native components.
 
-Each ``csrc/<name>.cu`` holds a kernel behind a plain C interface. It is
-compiled with nvcc for sm_90a into ``native/build/lib<name>.so`` at first
-use (a source-mtime check triggers a rebuild) and loaded with ctypes, the
-same route as the reference's g++ builds (tomatis_tpu/native/build.py).
+Each ``csrc/<name>.cu`` holds a CUDA kernel behind a plain C interface,
+compiled with nvcc for sm_90a; each ``csrc/<name>.cpp`` is host C++ (the
+FLAC codec), compiled with the host C++ compiler (g++, else nvcc in its
+place). Either goes into ``native/build/lib<name>.so`` at first
+use (a source-mtime check triggers a rebuild) and is loaded with ctypes,
+the same route as the reference's g++ builds (tomatis_tpu/native/build.py).
 No PyTorch headers are compiled, so a build takes seconds. A failed build
-raises: there is no fall-back.
+raises RuntimeError: a kernel has no fall-back; the codec's callers decide
+(io/flac.py reads with the pure decoder, the processors write WAV).
 """
 from __future__ import annotations
 
@@ -20,10 +23,13 @@ CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+CXX_FLAGS = ["-std=c++17", "-O3", "-funroll-loops", "-shared", "-fPIC"]
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict = {}     # one per library: two sources build in parallel
 _CACHE: dict = {}
-# nvcc's stderr of each build (-Xptxas -v: registers, shared memory, spills)
+# the compiler's stderr of each build (nvcc -Xptxas -v: registers, shared
+# memory, spills)
 BUILD_LOG: dict = {}
 
 
@@ -38,28 +44,66 @@ def nvcc_path() -> str:
                        "or put nvcc on PATH)")
 
 
+def _cxx_commands(src: str, tmp: str) -> list:
+    """Command lines to try in order for a host C++ source. The library is
+    built on the machine that runs it, so -march=native is safe; it is
+    retried without for compilers that reject the flag."""
+    gxx = shutil.which("g++")
+    if gxx:
+        base = [gxx, *CXX_FLAGS, src, "-o", tmp]
+        return [base[:1] + ["-march=native"] + base[1:], base]
+    try:
+        nvcc = nvcc_path()
+    except RuntimeError:
+        raise RuntimeError(
+            "native build needs a C++ compiler but neither g++ nor nvcc was "
+            "found. Install g++ (e.g. `apt install g++`) or stay on the "
+            "pure fallbacks: FLAC decode degrades automatically; FLAC "
+            "*encode* has no pure path — write .wav instead (the "
+            "processors fall back to .wav on their own).") from None
+    return [[nvcc, "-x", "c++", "-std=c++17", "-O3", "-shared", "-Xcompiler",
+             "-fPIC", src, "-o", tmp]]
+
+
 def _compile(src: str, out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     # process-unique temp + atomic rename: a concurrent process must never
     # dlopen a half-written library
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, src, "-o", tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if src.endswith(".cu"):
+        cmds = [[nvcc_path(), *NVCC_FLAGS, src, "-o", tmp]]
+    else:
+        cmds = _cxx_commands(src, tmp)
+    for cmd in cmds:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode == 0:
+            break
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"nvcc build failed: {' '.join(cmd)}\n"
+        raise RuntimeError(f"native build failed: {' '.join(cmd)}\n"
                            f"{proc.stderr}")
     BUILD_LOG[os.path.basename(src)] = proc.stderr
     os.replace(tmp, out)
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Load lib<name>.so built from csrc/<name>.cu, compiling if stale."""
+    """Load lib<name>.so built from csrc/<name>.cu or csrc/<name>.cpp,
+    compiling if stale."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _CACHE:
             return _CACHE[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
+        if not os.path.exists(src):
+            src = os.path.join(CSRC_DIR, f"{name}.cpp")
+            if os.environ.get("TOMATIS_NO_NATIVE"):
+                # test/ops hook: behave exactly like a machine without a
+                # C++ compiler (host components only; a CUDA kernel has no
+                # fall-back to disable)
+                raise RuntimeError(
+                    "native components disabled by TOMATIS_NO_NATIVE")
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         if (not os.path.exists(so)
                 or os.path.getmtime(so) < os.path.getmtime(src)):

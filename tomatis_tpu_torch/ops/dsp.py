@@ -99,3 +99,18 @@ def tilt_platform_freqs(fc, slope, low_gain_db, high_gain_db):
     f_lo = fc * 2.0 ** (-abs(low_gain_db) / slope)
     f_hi = fc * 2.0 ** (abs(high_gain_db) / slope)
     return f_lo, f_hi
+
+
+def tilt_index_db(spec_power, freqs, lo_band=(200.0, 1000.0),
+                  hi_band=(2000.0, 8000.0), eps: float = EPS):
+    """Tilt Index: 10*log10(E(2-8k)/E(200-1k)) over a power spectrum.
+
+    spec_power: [..., nbins] power spectrum; freqs: [nbins]."""
+    spec_power = _f32(spec_power)
+    freqs = torch.as_tensor(freqs, device=spec_power.device)
+    lo_m = (freqs >= lo_band[0]) & (freqs < lo_band[1])
+    hi_m = (freqs >= hi_band[0]) & (freqs < hi_band[1])
+    zero = torch.zeros((), dtype=spec_power.dtype, device=spec_power.device)
+    e_lo = torch.sum(torch.where(lo_m, spec_power, zero), dim=-1)
+    e_hi = torch.sum(torch.where(hi_m, spec_power, zero), dim=-1)
+    return 10.0 * torch.log10((e_hi + eps) / (e_lo + eps))

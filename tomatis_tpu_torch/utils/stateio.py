@@ -23,10 +23,14 @@ class StateCsvWriter:
     """Streaming writer for the per-frame state audit trail."""
 
     def __init__(self, path, sr: int, total: int, with_alpha: bool = False,
-                 level_fmt=None, alpha_fmt=None):
+                 level_fmt=None, alpha_fmt=None, resume_at_frame=None):
         """level_fmt/alpha_fmt: printf formats. The standard processor
         writes raw floats; the crossfade processor writes level %.2f and
-        alpha %.3f (src/process_tomatis_xfade.py:293-295)."""
+        alpha %.3f (src/process_tomatis_xfade.py:293-295).
+
+        resume_at_frame: keep existing rows with frame_idx < this value and
+        continue appending (checkpoint/resume support)."""
+        import os
         self.sr = sr
         self.total = total
         self.with_alpha = with_alpha
@@ -35,9 +39,17 @@ class StateCsvWriter:
         header = ["frame_idx", "time_sec", "level_dbfs", "state"]
         if with_alpha:
             header.append("alpha")
+        keep = [header]
+        if resume_at_frame is not None and os.path.exists(path):
+            with open(path, newline="", encoding="utf-8") as f:
+                rows = list(csv.reader(f))
+            if rows:   # a crash can leave a truncated/empty CSV behind
+                keep = [rows[0]] + [r for r in rows[1:]
+                                    if r and int(r[0]) < resume_at_frame]
         self._f = open(path, "w", newline="", encoding="utf-8")
         self._w = csv.writer(self._f)
-        self._w.writerow(header)
+        for r in keep:
+            self._w.writerow(r)
 
     def on_frames(self, frame0: int, starts, log):
         levels = log["levels"]
