@@ -37,11 +37,39 @@ Phases, each fatal on failure (exit code != 0, no result line):
     chunk, a snapshot every 2 chunks), stopped by an exception from the
     audio sink on its second flush, then rerun: the checkpoint is gone
     and out.flac and the state CSV equal an uninterrupted run's bytes;
- 9. prints the card line, the kernels JSON line and, last, the result
-    line {"ok": true, "device": {...}}. Each path (standard, xfade, flac,
-    resume) is driven with the launch counts set to 0 just before it and
-    read just after: `launches_by_path` holds those readings, `launches`
-    their sum.
+ 9. adaptive path: adaptive.process_array over the M-minute programme,
+    cold then warm: one fused chunk-tail launch per chunk, every one the
+    ("floor8", "f32", C=2) variant, no standalone overlap-add; both gate
+    states and some 0 < alpha < 1; the stage times printed. Then
+    adaptive.process() file to file on the 60 s WAV and on a 60 s MONO
+    44.1 kHz WAV (the C=1 variant) against the port's CPU run: max|d| <=
+    1e-5 (plus 2e-7/win[k] on the stream's edge hops, where the output is
+    z/win[k]), thresholds equal to 1e-3 dB, C1/C2 counts and the state
+    column equal;
+10. EQ appliers: apply_eq on a 60 s FLAC (a frame of silence at both
+    ends, +20 dB input gain so the gain-protect copy runs) with a
+    synthetic curve CSV, pad on, pcm24, and apply_residual_eq --safe WAV
+    to WAV on the raw programme (no pad: the normaliser meets w ~ 0 at
+    both ends), each against the port's CPU run: launches per chunk,
+    output length F*hop + n_fft - hop, interior within 4 LSB, peak_seen
+    equal to 1e-5 relative (where the peak sits on an edge sample it is
+    z/win of a near-zero z, and only reported);
+11. EQ resume: apply_eq FLAC to FLAC with a checkpoint at 256 frames per
+    chunk, stopped on the third chunk's write, rerun: bytes equal an
+    uninterrupted run's, no checkpoint or staged WAV left;
+12. match: a synthetic 60 s original and a "device" rendition made by
+    the port's standard processor on the card (known threshold, gain and
+    a spectral tilt), workflow.match_device on the card: every artifact
+    written, T_raw within 2 dB of the truth, layer 2 tighter than layer 1,
+    final music_err < 0.4 dB; each stage's wall printed, the grid gate's
+    on its own line, and the grid gate alone at a 6-minute deployment's
+    size (8437 frames, 37908 lanes);
+13. declick: planted clicks are found and repaired, a clean file passes
+    through;
+14. prints the card line, the kernels JSON line and, last, the result
+    line {"ok": true, "device": {...}}. Each path is driven with the
+    launch counts set to 0 just before it and read just after:
+    `launches_by_path` holds those readings, `launches` their sum.
 The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -284,6 +312,8 @@ def check_chunk_tail(torch, cuda_ola):
         (29, 2, 4096, 1024, 20, "eps"),       # K=4, partial
         (1024, 1, 4096, 2048, 1024, "eps"),   # C=1
         (1024, 2, 4096, 2048, 1024, "floor8"),
+        (1024, 1, 4096, 2048, 1024, "floor8"),  # the adaptive mono path's
+        (1024, 1, 4096, 2048, 267, "floor8"),   # and its partial last chunk
         (37, 2, 300, 150, 30, "floor8"),      # hop % 4 != 0: scalar loop
         (16, 3, 512, 256, 16, "eps"),         # C=3: scalar loop
     ]
@@ -343,6 +373,19 @@ def check_chunk_tail(torch, cuda_ola):
                 f"path's before-figure) {plain_ms:.4f} ms; the same "
                 f"composition with the standalone OLA kernel {unfused_ms:.4f}"
                 f" ms")
+    # the adaptive processor's variants (floor8, f32), stereo and mono
+    for C in (2, 1):
+        F, n_fft, hop = 1024, 4096, 2048
+        a = tail_inputs(torch, gen, F, C, n_fft, hop)
+        plain_ms, ms = time_turns(torch, [
+            lambda: cuda_ola.chunk_tail_plain(n_valid=F, norm="floor8", **a),
+            lambda: cuda_ola.chunk_tail_cuda(n_valid=F, norm="floor8", **a)])
+        nbytes = tail_bytes(F, C, n_fft, hop, "f32")
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"chunk tail {(F, C, n_fft, hop)} floor8 f32 (the adaptive "
+            f"path's): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, {100 * bound_ms / ms:.0f}%"
+            f" of it); chunk_tail_plain {plain_ms:.4f} ms")
     return dict(max_abs_err=worst, library_ms=None,
                 **timed[(1024, "pcm24")])
 
@@ -399,22 +442,485 @@ def report_profile(prof, wall_s: float, top: int = 8):
 
 
 def reset_counts(cuda_ola):
-    """Set both launch counts to 0, just before a path is driven."""
+    """Set every launch count to 0, just before a path is driven."""
     cuda_ola.overlap_add_cuda.launches = 0
     cuda_ola.chunk_tail_cuda.launches = 0
+    cuda_ola.chunk_tail_cuda.by_variant.clear()
 
 
-def read_counts(cuda_ola, chunks: int, what: str) -> dict:
+def read_counts(cuda_ola, chunks: int, what: str, variant=None) -> dict:
     """The launch counts just after a path was driven; fails unless it
     made one fused chunk-tail launch per chunk and no standalone
-    overlap-add launch."""
+    overlap-add launch, and (variant given) every launch was that
+    (norm, transport, channels) variant of the kernel."""
     n_tail = cuda_ola.chunk_tail_cuda.launches
     n_ola = cuda_ola.overlap_add_cuda.launches
     if n_tail == 0 or n_tail != chunks or n_ola != 0:
         fail(f"{what}: {n_tail} chunk-tail and {n_ola} overlap-add "
              f"launches over {chunks} chunks (expected one chunk-tail "
              f"launch per chunk and no overlap-add)")
+    by = dict(cuda_ola.chunk_tail_cuda.by_variant)
+    if variant is not None and by != {variant: chunks}:
+        fail(f"{what}: chunk-tail variants {by}, expected only {variant}")
     return {"chunk_tail": n_tail, "overlap_add": n_ola}
+
+
+def pcm_of(audio, path) -> np.ndarray:
+    """A PCM_24 file's samples as integers [n, C]."""
+    y, _ = audio.read(path)
+    return np.rint(y * 8388608.0).astype(np.int64)
+
+
+def adaptive_bound(n: int, n_frames: int, n_fft: int, hop: int) -> np.ndarray:
+    """Tolerance [n, 1] between a card and a CPU run of the adaptive
+    processor over n samples: 1e-5, plus 2e-7/win[k] on the first and the
+    last hop of its stream (sample 0 to the last in-range frame's end).
+    One frame alone covers those hops, so a sample k from the stream's end
+    is z*win/win^2 = z/win[k], and an irFFT difference e between cuFFT and
+    the CPU's FFT comes out as e/win[k]. (The last hop lies past the file's
+    end unless the last frame that fits ends short of it.)"""
+    b = np.full(n, 1e-5)
+    extra = 2e-7 / np.maximum(np.hanning(n_fft)[:hop], 1e-30)
+    end = (n_frames - 1) * hop + n_fft         # hop | n_fft/2: base is 0
+    for k in range(1, hop):
+        for pos in (k, end - 1 - k):
+            if 0 <= pos < n:
+                b[pos] += extra[k]
+    return b[:, None]
+
+
+def adaptive_paths(torch, cuda_ola, audio, adaptive, x, ip, tmp) -> dict:
+    """Phase 9. x: the long programme; ip: the 60 s stereo WAV."""
+    pa = adaptive.AdaptiveParams()
+    launches = {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(cuda_ola)
+        t0 = time.perf_counter()
+        y, info = adaptive.process_array(x, SR, pa, frames_per_chunk=1024,
+                                         device="cuda")
+        wall = time.perf_counter() - t0
+        chunks = -(-info["n_frames"] // 1024)
+        counts = read_counts(cuda_ola, chunks, f"adaptive {run} run",
+                             ("floor8", "f32", 2))
+        launches.setdefault("adaptive", counts)
+        alpha, states = info["alpha"], info["states"]
+        n_mid = int(np.sum((alpha > 0) & (alpha < 1)))
+        if y.shape != x.shape or not np.all(np.isfinite(y)):
+            fail(f"adaptive output shape {y.shape} or non-finite values")
+        if set(np.unique(states)) != {1, 2} or n_mid == 0:
+            fail(f"adaptive path: states {np.unique(states)}, {n_mid} "
+                 f"frames with 0 < alpha < 1")
+        if np.max(np.abs(y)) > 0.999 + 1e-6:
+            fail("adaptive output exceeds the 0.999 peak limit")
+        log(f"adaptive path ({run}): {info['n_frames']} frames, {chunks} "
+            f"chunks, {counts['chunk_tail']} chunk-tail launches (all floor8"
+            f"/f32/C=2), {counts['overlap_add']} overlap-add launches, "
+            f"threshold {info['optimal_threshold']:.3f} dBFS, C2 ratio "
+            f"{info['c2_ratio']:.4f}, {info['switch_count']} switches, "
+            f"{n_mid} frames with 0 < alpha < 1, pre-attenuation "
+            f"{info['atten_db']:.2f} dB, wall {wall:.3f} s, realtime factor "
+            f"{len(x) / SR / wall:.2f}x, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, stages "
+            f"{info['timings']}")
+
+    # file to file against the port's CPU run: stereo 48 kHz, then a MONO
+    # 44.1 kHz file (the first channel's samples at another rate)
+    x60, _ = audio.read(ip)
+    mono_ip = os.path.join(tmp, "mono44.wav")
+    audio.write(mono_ip, x60[:60 * 44100, :1], 44100, subtype="PCM_24")
+    for name, path, ch in (("adaptive_file", ip, 2),
+                           ("adaptive_mono", mono_ip, 1)):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            op = os.path.join(tmp, f"{name}_{dev}.wav")
+            cp = os.path.join(tmp, f"{name}_{dev}.csv")
+            if dev == "cuda":
+                reset_counts(cuda_ola)
+            st = adaptive.process(path, op, pa, state_csv_path=cp,
+                                  frames_per_chunk=1024, device=dev)
+            if dev == "cuda":
+                launches[name] = read_counts(
+                    cuda_ola, -(-st["n_frames"] // 1024), name,
+                    ("floor8", "f32", ch))
+            outs[dev] = (st, audio.read(op)[0], read_adaptive_csv(cp))
+        (st_g, y_g, csv_g), (st_c, y_c, csv_c) = outs["cuda"], outs["cpu"]
+        meta = audio.info(os.path.join(tmp, f"{name}_cuda.wav"))
+        if (meta.frames, meta.channels) != (st_g["total"], ch) \
+                or meta.subtype != "PCM_24":
+            fail(f"{name}: wrote {meta}")
+        d = np.abs(y_g - y_c)
+        bound = adaptive_bound(len(d), st_g["n_frames"], pa.n_fft, pa.hop)
+        # one PCM_24 step on top: both files are quantised
+        if not np.all(d <= bound + 2.0 ** -23):
+            fail(f"{name}: card vs CPU max|d| {d.max()} over the bound "
+                 f"(1e-5 off the stream's edge hops)")
+        inner = d[pa.hop:len(d) - pa.hop]
+        if abs(st_g["optimal_threshold"] - st_c["optimal_threshold"]) > 1e-3:
+            fail(f"{name}: threshold {st_g['optimal_threshold']} on the card,"
+                 f" {st_c['optimal_threshold']} on the CPU")
+        if csv_g["state"] != csv_c["state"] \
+                or st_g["switch_count"] != st_c["switch_count"]:
+            fail(f"{name}: the state column differs between card and CPU")
+        n_c2 = csv_g["state"].count("C2")
+        if not 0 < n_c2 < len(csv_g["state"]):
+            fail(f"{name}: {n_c2} C2 frames of {len(csv_g['state'])}")
+        log(f"{name} ({ch} ch, {st_g['sr']} Hz, {st_g['total']} samples): "
+            f"{launches[name]['chunk_tail']} chunk-tail launches (floor8/f32/"
+            f"C={ch}); card vs CPU max|d| {d[:pa.hop].max():.3e} on the first"
+            f" hop, {d[-pa.hop:].max():.3e} on the last, {inner.max():.3e} "
+            f"between them (output peak {float(np.abs(y_c).max()):.4f}); "
+            f"threshold "
+            f"{st_g['optimal_threshold']:.6f} vs "
+            f"{st_c['optimal_threshold']:.6f} dBFS (|d| "
+            f"{abs(st_g['optimal_threshold'] - st_c['optimal_threshold']):.1e}"
+            f"); C1/C2 {len(csv_g['state']) - n_c2}/{n_c2} and the state "
+            f"column equal; card wall {st_g['timings']['wall_s']:.3f} s, "
+            f"stages {st_g['timings']}")
+    return launches
+
+
+def read_adaptive_csv(path) -> dict:
+    """The adaptive state CSV's state and alpha columns."""
+    import csv
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return dict(state=[r["state"] for r in rows],
+                alpha=np.array([float(r["alpha"]) for r in rows]))
+
+
+def edges_agree(a: np.ndarray, b: np.ndarray, n_fft: int, hop: int) -> str:
+    """Two renders of one uncropped stream, PCM_24 ints [n, C]: within 4
+    LSB off the edge hops; on them, where the output is z/win[k] k samples
+    from the end, within 4 LSB + 1e-7/win[k] or saturated alike. Returns
+    a description, or fails."""
+    n = len(a)
+    if len(b) != n:
+        fail(f"render lengths differ: {n} and {len(b)}")
+    d = np.abs(a - b)
+    inner = d[hop:n - hop].max() if n > 2 * hop else 0
+    if inner > 4:
+        fail(f"renders differ by {inner} LSB off the edge hops (limit 4)")
+    win = np.maximum(np.hanning(n_fft)[:hop], 1e-30)
+    bound = (4 + 8388608 * 1e-7 / win)[:, None]
+    worst = 0
+    for sl, bd in ((slice(0, hop), bound), (slice(n - hop, n), bound[::-1])):
+        sat = (np.abs(a[sl]) >= 8388607) | (np.abs(b[sl]) >= 8388607)
+        if not np.all(np.sign(a[sl][sat]) == np.sign(b[sl][sat])):
+            fail("an edge sample saturates with opposite signs")
+        if not np.all((d[sl] <= bd) | sat):
+            fail(f"edge hop differs beyond 4 LSB + 1e-7/win[k]: "
+                 f"{d[sl].max()} LSB")
+        worst = max(worst, int(np.where(sat, 0, d[sl]).max()))
+    edge_peak = int(max(np.abs(a[:hop]).max(), np.abs(a[n - hop:]).max()))
+    return (f"{inner} LSB off the edge hops, {worst} LSB on them "
+            f"(edge peak {edge_peak} of 8388607)")
+
+
+def eq_paths(torch, cuda_ola, audio, eq, standard, x60, tmp) -> dict:
+    """Phases 10 and 11: both appliers against the CPU run, then an
+    interrupted and resumed apply_eq."""
+    import csv
+    n_fft, hop = 4096, 2048
+    launches = {}
+    eq_csv = os.path.join(tmp, "curve.csv")
+    with open(eq_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["freq_hz", "delta_db_raw", "delta_db_smooth"])
+        for fr in np.geomspace(20, 20000, 96):
+            w.writerow([fr, 0.0, 4.0 * np.sin(np.log10(fr) * 2.0)])
+    diff_csv = os.path.join(tmp, "diff.csv")
+    freqs = np.fft.rfftfreq(n_fft, 1 / SR)
+    np.savetxt(diff_csv, np.stack(
+        [freqs, 3.0 * np.sin(np.log10(np.maximum(freqs, 1.0)) * 3.0)], 1),
+        delimiter=",", header="freq_hz,delta_db_base_minus_cand", comments="")
+
+    # apply_eq: FLAC to FLAC, pad on, a silent frame at both ends
+    xs = x60.copy()
+    xs[:n_fft] = 0.0
+    xs[-2 * n_fft:] = 0.0
+    sip = os.path.join(tmp, "eq_in.flac")
+    audio.write(sip, xs, SR, subtype="PCM_24")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        op = os.path.join(tmp, f"eq_{dev}.flac")
+        if dev == "cuda":
+            reset_counts(cuda_ola)
+        res[dev] = eq.apply_eq(sip, op, eq_csv, device=dev)
+        if dev == "cuda":
+            launches["apply_eq"] = read_counts(
+                cuda_ola, res[dev]["chunks"], "apply_eq", ("eps", "pcm24", 2))
+    rg, rc = res["cuda"], res["cpu"]
+    F = rg["n_frames"]
+    a, b = pcm_of(audio, rg["out_path"]), pcm_of(audio, rc["out_path"])
+    if F != (len(xs) + n_fft - n_fft) // hop + 1 \
+            or len(a) != F * hop + n_fft - hop or rg["transport"] != "pcm24":
+        fail(f"apply_eq: {F} frames, {len(a)} samples, {rg['transport']}")
+    what = edges_agree(a, b, n_fft, hop)
+    rel = abs(rg["peak_seen"] - rc["peak_seen"]) / rc["peak_seen"]
+    if rel > 1e-5:
+        fail(f"apply_eq: peak_seen {rg['peak_seen']} on the card, "
+             f"{rc['peak_seen']} on the CPU")
+    if rg["gain_protected_path"] or rg["peak_seen"] > 0.99:
+        fail(f"apply_eq: peak {rg['peak_seen']} on a programme below 0.2")
+    log(f"apply_eq (60 s FLAC to FLAC, pad on, pcm24): {F} frames, "
+        f"{launches['apply_eq']['chunk_tail']} chunk-tail launches, "
+        f"{len(a)} samples = F*hop + n_fft - hop; card vs CPU {what}; "
+        f"peak_seen {rg['peak_seen']:.6f} vs {rc['peak_seen']:.6f} (rel "
+        f"{rel:.1e}); card stages {rg['timings']}")
+    # the same call 20 dB up: the render clips, so the gain-protect copy
+    # (a host loop over 30 s blocks: FLAC decode, scale, FLAC encode) runs
+    rgp = eq.apply_eq(sip, os.path.join(tmp, "eq_hot.flac"), eq_csv,
+                      global_gain_db=20.0, device="cuda")
+    if not rgp["gain_protected_path"] or not rgp["peak_seen"] > 0.99:
+        fail(f"apply_eq: no gain-protect copy at peak {rgp['peak_seen']}")
+    gp = pcm_of(audio, rgp["gain_protected_path"])
+    if len(gp) != len(a) or np.abs(gp).max() > 0.99 * 8388608 + 1:
+        fail(f"apply_eq: gain-protect copy peaks at {np.abs(gp).max()}")
+    log(f"apply_eq +20 dB: peak_seen {rgp['peak_seen']:.4f}, gain-protect "
+        f"copy at scale {rgp['gain_protect_scale']:.4f} written in "
+        f"{rgp['timings']['gain_protect_s']} s (stream "
+        f"{rgp['timings']['wall_s']} s)")
+
+    # apply_residual_eq --safe: WAV to WAV, no pad, signal up to both ends
+    rip = os.path.join(tmp, "res_in.wav")
+    audio.write(rip, x60, SR, subtype="PCM_24")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        op = os.path.join(tmp, f"res_{dev}.wav")
+        if dev == "cuda":
+            reset_counts(cuda_ola)
+        res[dev] = eq.apply_residual_eq(rip, op, diff_csv, safe=True,
+                                        device=dev)
+        if dev == "cuda":
+            launches["apply_residual_eq"] = read_counts(
+                cuda_ola, res[dev]["chunks"], "apply_residual_eq",
+                ("eps", "pcm24", 2))
+    rg, rc = res["cuda"], res["cpu"]
+    F = rg["n_frames"]
+    a, b = pcm_of(audio, rg["out_path"]), pcm_of(audio, rc["out_path"])
+    if F != (len(x60) - n_fft) // hop + 1 or len(a) != F * hop + n_fft - hop:
+        fail(f"apply_residual_eq: {F} frames, {len(a)} samples")
+    what = edges_agree(a, b, n_fft, hop)
+    interior_peak = np.abs(a[hop:len(a) - hop]).max() / 8388608.0
+    rel = abs(rg["peak_seen"] - rc["peak_seen"]) / rc["peak_seen"]
+    on_edge = rg["peak_seen"] > interior_peak * 1.001 + 2.0 ** -23
+    if rel > (5e-2 if on_edge else 1e-5):
+        fail(f"apply_residual_eq: peak_seen {rg['peak_seen']} on the card, "
+             f"{rc['peak_seen']} on the CPU (peak on an edge: {on_edge})")
+    log(f"apply_residual_eq --safe (60 s WAV to WAV, no pad): {F} frames, "
+        f"{launches['apply_residual_eq']['chunk_tail']} chunk-tail launches,"
+        f" {len(a)} samples = F*hop + n_fft - hop; card vs CPU {what}; "
+        f"peak_seen {rg['peak_seen']:.6f} vs {rc['peak_seen']:.6f} (rel "
+        f"{rel:.1e}; the peak is "
+        + ("an edge sample, z/win of a near-zero z" if on_edge
+           else "interior")
+        + f", interior peak {interior_peak:.6f}); card stages {rg['timings']}")
+
+    # phase 11: apply_eq with a checkpoint, stopped and rerun
+    kw = dict(global_gain_db=0.0, frames_per_chunk=256, device="cuda")
+    uop, rop = os.path.join(tmp, "equ.flac"), os.path.join(tmp, "eqr.flac")
+    ck = os.path.join(tmp, "eq_ck.npz")
+    ures = eq.apply_eq(sip, uop, eq_csv, **kw)
+
+    class SinkStopped(Exception):
+        pass
+
+    writes = [0]
+    write_raw = standard._RawWav.write_raw
+
+    def stop_on_third(self, raw):
+        writes[0] += 1
+        if writes[0] > 2:
+            raise SinkStopped()
+        return write_raw(self, raw)
+
+    standard._RawWav.write_raw = stop_on_third
+    try:
+        eq.apply_eq(sip, rop, eq_csv, checkpoint_path=ck, checkpoint_every=2,
+                    **kw)
+    except SinkStopped:
+        pass
+    else:
+        fail("EQ resume: the sink's exception did not stop the run")
+    finally:
+        standard._RawWav.write_raw = write_raw
+    if not os.path.exists(ck) or not os.path.exists(rop + ".part.wav"):
+        fail("EQ resume: no checkpoint or no staged WAV after the stop")
+    reset_counts(cuda_ola)
+    rres = eq.apply_eq(sip, rop, eq_csv, checkpoint_path=ck,
+                       checkpoint_every=2, **kw)
+    launches["eq_resume"] = read_counts(cuda_ola, rres["chunks"],
+                                        "EQ resume", ("eps", "pcm24", 2))
+    if os.path.exists(ck) or os.path.exists(rop + ".part.wav"):
+        fail("EQ resume: the checkpoint or the staged WAV was left behind")
+    if not 0 < rres["chunks"] < ures["chunks"]:
+        fail(f"EQ resume: the rerun took {rres['chunks']} chunks of "
+             f"{ures['chunks']}: it did not resume mid-stream")
+    if open(rop, "rb").read() != open(uop, "rb").read() \
+            or rres["peak_seen"] != ures["peak_seen"]:
+        fail("EQ resume: the output or its peak differs from the "
+             "uninterrupted run's")
+    log(f"EQ resume: stopped on write 3, resumed with {rres['chunks']} of "
+        f"{ures['chunks']} chunks left; out.flac ({os.path.getsize(rop)} "
+        f"bytes) equals the uninterrupted run's byte for byte, peak_seen "
+        f"equal; checkpoint and staged WAV removed")
+    return launches
+
+
+def match_music(seconds: float, seed: int) -> np.ndarray:
+    """Broadband 'music' for the match workflow: filtered noise under a
+    percussive envelope whose level swings across the gate threshold."""
+    from scipy.signal import lfilter
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SR)
+    noise = lfilter([1.0], [1.0, -0.93], rng.standard_normal(n))
+    noise = noise / np.max(np.abs(noise))
+    amp = np.full(n, 0.004, np.float32)
+    pos = 0
+    while pos < n:
+        dur = int(SR * rng.uniform(0.2, 0.7))
+        peak = 0.05 * 10 ** (0.4 * rng.standard_normal())
+        seg = min(dur, n - pos)
+        amp[pos:pos + seg] += peak * np.exp(-np.arange(seg) / (0.3 * SR))
+        pos += dur
+    x = amp * noise
+    return np.clip(np.stack([x, 0.95 * x], 1), -1, 1).astype(np.float32)
+
+
+def colorize(x: np.ndarray, gains_db_at) -> np.ndarray:
+    """A fixed spectral coloration, interpolated on the log-f axis."""
+    n = len(x)
+    freqs = np.fft.rfftfreq(n, 1 / SR)
+    fs, dbs = zip(*gains_db_at)
+    g = 10 ** (np.interp(np.log10(np.maximum(freqs, 1)),
+                         np.log10(fs), dbs) / 20.0)
+    y = np.empty_like(x)
+    for c in range(x.shape[1]):
+        y[:, c] = np.fft.irfft(np.fft.rfft(x[:, c]) * g, n)
+    return y.astype(np.float32)
+
+
+def match_path(torch, cuda_ola, audio, standard, seed: int, tmp) -> dict:
+    """Phase 12: the whole match workflow on the card."""
+    from tomatis_tpu_torch.analysis import gridgate
+    from tomatis_tpu_torch.models import workflow
+    true_t, true_hyst, dev_gain = -28.0, 2.0, -4.0
+    color = [(30, -4.0), (300, 3.0), (1000, 0.0), (5000, -6.0),
+             (16000, -9.0)]
+    tilt = dict(c1_low=3.0, c1_high=-3.0, c2_low=-3.0, c2_high=3.0)
+    orig = match_music(60.0, seed + 33)
+    p_dev = standard.StandardParams(
+        gate_ui=50.0, gate_mode="linear", gate_offset=true_t - 50.0,
+        hysteresis_db=true_hyst, up_delay_ms=0.0, output_gain_db=dev_gain,
+        **tilt)
+    dev, _ = standard.process_array(orig, SR, p_dev, device="cuda")
+    dev = colorize(dev, color)
+    orig_p = os.path.join(tmp, "m_orig.flac")
+    dev_p = os.path.join(tmp, "m_device.flac")
+    audio.write(orig_p, orig, SR, subtype="PCM_24")
+    audio.write(dev_p, np.clip(dev[int(0.3 * SR):], -1, 1), SR,
+                subtype="PCM_24")
+    outdir = os.path.join(tmp, "match")
+    lines = []
+    reset_counts(cuda_ola)
+    t0 = time.perf_counter()
+    rep = workflow.match_device(orig_p, dev_p, outdir, max_minutes=6.0,
+                                progress=lines.append, device="cuda",
+                                **tilt)
+    wall = time.perf_counter() - t0
+    # three streams of 2 chunks each; a peak-protected final render adds 2
+    protected = "peak_protect_db" in rep["stages"].get("residual", {})
+    counts = read_counts(cuda_ola, 8 if protected else 6, "match")
+    n_tail = counts["chunk_tail"]
+    for ln in lines:
+        log(f"match: {ln}")
+    for name in ("calibration_v2.json", "state.csv", "layer1.flac",
+                 "layer2_eq_curve.csv", "layer2.flac", "diff_spectrum.csv",
+                 "matched.flac", "final_diff_spectrum.csv",
+                 "match_report.json"):
+        if not os.path.exists(os.path.join(outdir, name)):
+            fail(f"match: artifact {name} was not written")
+    st = rep["stages"]
+    if abs(st["calibrate"]["T_raw_dbfs"] - true_t) >= 2.0:
+        fail(f"match: T_raw {st['calibrate']['T_raw_dbfs']} dBFS, truth "
+             f"{true_t}")
+    if not st["layer2"]["music_err_db"] < st["layer1"]["music_err_db"]:
+        fail(f"match: layer 2 music_err {st['layer2']['music_err_db']} is "
+             f"not under layer 1's {st['layer1']['music_err_db']}")
+    if not st["final"]["music_err_db"] < 0.4:
+        fail(f"match: final music_err {st['final']['music_err_db']} dB")
+    y, _ = audio.read(rep["matched_path"])
+    if not np.all(np.isfinite(y)) or np.max(np.abs(y[4096:-4096])) > 0.9901:
+        fail("match: the final render's interior clips or is not finite")
+    tm = rep["timings"]
+    log(f"match (60 s original, device rendition at T {true_t} dBFS, "
+        f"{dev_gain} dB, coloured, 0.3 s late): T_raw "
+        f"{st['calibrate']['T_raw_dbfs']:.2f} dBFS, hyst "
+        f"{st['calibrate']['hyst_db']}, state mismatch "
+        f"{st['calibrate']['mismatch']:.4f}; music_err layer 1 "
+        f"{st['layer1']['music_err_db']:.3f} dB, layer 2 "
+        f"{st['layer2']['music_err_db']:.3f} dB, final "
+        f"{st['final']['music_err_db']:.3f} dB; {n_tail} chunk-tail launches"
+        f"; wall {wall:.3f} s, stages "
+        f"{ {k: v for k, v in tm.items() if k != 'calibrate'} }")
+    cal = json.load(open(os.path.join(outdir, "calibration_v2.json")))
+    log(f"match calibrate split: {tm['calibrate']}")
+    log(f"grid gate (inside calibrate, 60 s): {tm['calibrate']['grid_gate_s']}"
+        f" s for the gate of {cal['hyst_db']} dB hysteresis found")
+
+    # the grid gate alone at a 6-minute deployment's size: 8437 frames,
+    # 13 gains x 2916 combinations in the lanes
+    rng = np.random.default_rng(seed)
+    F, B, G = 8437, 13, 2916
+    levels = (-45 + 25 * rng.random((B, F))).astype(np.float32)
+    tons = (-40 + 20 * rng.random((B, G))).astype(np.float32)
+    ups = rng.integers(0, 12001, (B, G)).astype(np.int32)
+    tgt = (1 + (rng.random(F) > 0.5)).astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, _, _ = gridgate.grid_gate_scores(
+        levels, np.arange(F) * 2048, tons, tons - 2.0, ups, 1e-5, tgt,
+        device="cuda")
+    t_grid = time.perf_counter() - t0
+    if scores.shape != (B, G) or not np.all(np.isfinite(scores)):
+        fail(f"grid gate scores {scores.shape}")
+    log(f"grid gate alone, 6-minute size ({F} frames x {B * G} lanes): "
+        f"{t_grid:.3f} s ({1e6 * t_grid / F:.1f} us a frame)")
+    return {"match": counts}
+
+
+def declick_path(audio, tmp):
+    """Phase 13: planted clicks are found; a clean file passes through."""
+    from tomatis_tpu_torch.models import repair
+    rng = np.random.default_rng(5)
+    n = 10 * SR
+    t = np.arange(n) / SR
+    clean = (0.3 * np.sin(2 * np.pi * 220 * t)[:, None]
+             + 0.001 * rng.standard_normal((n, 2))).astype(np.float32)
+    clicks = [12345, 100000, 250007, 400000]
+    x = clean.copy()
+    x[clicks] += 0.9
+    ip, op = os.path.join(tmp, "clicks.wav"), os.path.join(tmp, "fixed.wav")
+    audio.write(ip, x, SR, subtype="PCM_24")
+    t0 = time.perf_counter()
+    st = repair.declick(ip, op, report_csv=os.path.join(tmp, "clicks.csv"))
+    wall = time.perf_counter() - t0
+    y, _ = audio.read(op)
+    if st.get("kept_segments", 0) < len(clicks) or len(y) != n \
+            or any(abs(y[c, 0]) > 0.45 for c in clicks):
+        fail(f"declick: {st}, repaired peaks "
+             f"{[float(abs(y[c, 0])) for c in clicks]}")
+    cip, cop = os.path.join(tmp, "clean.wav"), os.path.join(tmp, "clean2.wav")
+    audio.write(cip, clean, SR, subtype="PCM_24")
+    st2 = repair.declick(cip, cop, k=25.0)
+    if st2["hits"] != 0 or not np.array_equal(audio.read(cop)[0],
+                                              audio.read(cip)[0]):
+        fail(f"declick: the clean file did not pass through: {st2}")
+    log(f"declick: {st['hits']} hits, {st['kept_segments']} segments over "
+        f"{len(clicks)} planted clicks repaired in {wall:.3f} s (10 s "
+        f"stereo); the clean file passes through sample for sample")
 
 
 def main() -> int:
@@ -431,7 +937,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     sys.path.insert(0, HERE)
-    from tomatis_tpu_torch.models import standard, xfade
+    from tomatis_tpu_torch.models import adaptive, eq, standard, xfade
     from tomatis_tpu_torch.io import audio
     from tomatis_tpu_torch.native.build import BUILD_LOG, load_library
     from tomatis_tpu_torch.ops import cuda_ola
@@ -704,9 +1210,17 @@ def main() -> int:
         f"bytes) and the state CSV equal the uninterrupted run's byte for "
         f"byte; checkpoint removed; the 256-frame run's samples "
         f"{'equal' if same else 'differ from'} the 1024-frame run's")
+
+    # -- 9-13. adaptive, EQ appliers, EQ resume, match, declick --------------
+    launches.update(adaptive_paths(torch, cuda_ola, audio, adaptive, x, ip,
+                                   tmp))
+    launches.update(eq_paths(torch, cuda_ola, audio, eq, standard, x60, tmp))
+    launches.update(match_path(torch, cuda_ola, audio, standard, args.seed,
+                               tmp))
+    declick_path(audio, tmp)
     tmp_dir.cleanup()
 
-    # -- 9. result -----------------------------------------------------------
+    # -- 14. result ----------------------------------------------------------
     kernels = [dict(name=name, route="cuda",
                     source="tomatis_tpu_torch/csrc/ola.cu",
                     replaces="tomatis_tpu/ops/pallas_ola.py:75",

@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_reference():
                        capture_output=True, text=True, timeout=120, env=env)
     assert r.returncode == 0, r.stderr[-2000:]
     n = int(r.stdout.split("IMPORTED")[1])
-    assert n >= 28   # every module of every sub-package was imported
+    assert n >= 54   # every module of every sub-package was imported
 
 
 def test_new_modules_import_no_jax_and_no_reference():
@@ -48,6 +48,29 @@ def test_new_modules_import_no_jax_and_no_reference():
             "tomatis_tpu_torch.cli.convert; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tomatis_tpu')); assert not bad, bad" % REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_eq_adaptive_analysis_modules_import_no_jax_no_pandas():
+    """The adaptive processor, the EQ appliers, the repair tools, the
+    analysis stage, the match workflow and their commands, imported on
+    their own in a fresh interpreter: no jax, nothing of the JAX package,
+    no pandas (the EQ CSV readers use the csv module)."""
+    mods = ["models.eq", "models.adaptive", "models.repair",
+            "models.workflow", "analysis.align", "analysis.spectra",
+            "analysis.compare", "analysis.analyze_eq", "analysis.features",
+            "analysis.gridgate", "analysis.calibrate", "cli.apply_eq",
+            "cli.apply_residual_eq", "cli.process_adaptive", "cli.repair",
+            "cli.cut", "cli.compare", "cli.analyze_eq", "cli.calibrate",
+            "cli.calibrate_v2", "cli.match", "cli.main", "convert"]
+    code = ("import sys; sys.path.insert(0, %r); import importlib; "
+            "[importlib.import_module('tomatis_tpu_torch.' + m) "
+            "for m in %r]; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tomatis_tpu', 'pandas')); "
+            "assert not bad, bad" % (REPO, mods))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]

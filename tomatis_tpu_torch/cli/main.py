@@ -1,7 +1,8 @@
 """CLI dispatcher of the PyTorch port:
 `python -m tomatis_tpu_torch.cli.main <command> ...`.
 
-`process`, `process-xfade` and `convert` are ported so far; the other
+The three processors, the EQ appliers, the repair tools and the
+device-matching workflow with its analysis commands are ported; the other
 commands of tomatis_tpu/cli/main.py are queued in ROADMAP.md.
 """
 from __future__ import annotations
@@ -14,6 +15,28 @@ COMMANDS = {
                 "standard gate-controlled C1/C2 tilt processor"),
     "process-xfade": ("tomatis_tpu_torch.cli.process_xfade",
                       "processor with crossfade state transitions"),
+    "process-adaptive": ("tomatis_tpu_torch.cli.process_adaptive",
+                         "adaptive processor (auto threshold, min-hold, "
+                         "crossfade)"),
+    "apply-eq": ("tomatis_tpu_torch.cli.apply_eq",
+                 "apply a static EQ curve (layer 2)"),
+    "apply-residual-eq": ("tomatis_tpu_torch.cli.apply_residual_eq",
+                          "apply a clamped residual EQ (layer 2b; --safe "
+                          "for Safe-B)"),
+    "declick": ("tomatis_tpu_torch.cli.repair",
+                "detect and inpaint clicks/pops"),
+    "cut": ("tomatis_tpu_torch.cli.cut", "trim the first N seconds"),
+    "compare": ("tomatis_tpu_torch.cli.compare",
+                "pairwise comparator -> diff_spectrum.csv"),
+    "analyze-eq": ("tomatis_tpu_torch.cli.analyze_eq",
+                   "derive the layer-2 EQ curve"),
+    "calibrate": ("tomatis_tpu_torch.cli.calibrate",
+                  "fit gate params to a device recording (v1)"),
+    "calibrate-v2": ("tomatis_tpu_torch.cli.calibrate_v2",
+                     "fit gate params + gain (v2)"),
+    "match": ("tomatis_tpu_torch.cli.match",
+              "one-command device matching: calibrate -> process -> EQ -> "
+              "residual EQ"),
     "convert": ("tomatis_tpu_torch.cli.convert",
                 "convert audio between WAV and FLAC"),
 }

@@ -68,3 +68,22 @@ def standard_params_from_dict(d: dict) -> StandardParams:
 def xfade_params_from_dict(d: dict) -> XfadeParams:
     """XfadeParams from ``dataclasses.asdict`` of the reference's."""
     return _params_from_dict(XfadeParams, d)
+
+
+def adaptive_params_from_dict(d: dict):
+    """AdaptiveParams from ``dataclasses.asdict`` of the reference's."""
+    from tomatis_tpu_torch.models.adaptive import AdaptiveParams
+    return _params_from_dict(AdaptiveParams, d)
+
+
+def eq_gain_bins_from_reference(gain_bins, n_fft: int) -> np.ndarray:
+    """The EQ appliers' per-bin linear gains as the reference builds them
+    (``build_gain_per_bin``, ``build_eq_from_residual*``): float32
+    [n_fft//2 + 1], handed to ``models.eq.apply_gain_stream`` as they
+    are. The checkpoint fingerprint hashes these bytes, so a checkpoint
+    written by either package names the same curve."""
+    g = np.ascontiguousarray(gain_bins, np.float32)
+    if g.shape != (n_fft // 2 + 1,):
+        raise ValueError(f"expected [{n_fft // 2 + 1}] gain bins, "
+                         f"got {g.shape}")
+    return g

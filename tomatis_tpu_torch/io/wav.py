@@ -247,6 +247,11 @@ class WavWriter:
         self._f.write(raw)
         self._data_bytes += len(raw)
 
+    def flush(self):
+        """Push buffered sample bytes to the OS (checkpointed writers
+        need data bytes durable-ordered before their state file)."""
+        self._f.flush()
+
     def close(self):
         if self._f.closed:
             return

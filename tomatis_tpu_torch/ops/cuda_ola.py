@@ -20,6 +20,7 @@ stft.overlap_add.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -27,6 +28,10 @@ import torch
 from tomatis_tpu_torch.ops.dsp import EPS
 
 NORMS = ("eps", "floor8")
+# the "floor8" normaliser floor, y/max(w, FLOOR8): one value for
+# chunk_tail_plain, the adaptive processor's closing tail piece and the
+# kernel (csrc/ola.cu writes the same number as 1e-8f)
+FLOOR8 = 1e-8
 TRANSPORTS = ("f32", "pcm24")
 
 
@@ -97,7 +102,7 @@ def chunk_tail_plain(z, win, win2, n_valid: int, out_tail, w_tail, gain_lin,
     ola[:tail] += out_tail
     w[:tail] += w_tail
     if norm == "floor8":
-        emit = ola / torch.clamp(w[:, None], min=1e-8)
+        emit = ola / torch.clamp(w[:, None], min=FLOOR8)
     else:
         emit = ola / (w[:, None] + EPS)
     carries = (ola[F * hop:].clone(), w[F * hop:].clone())
@@ -174,7 +179,8 @@ def chunk_tail_cuda(z, win, win2, n_valid: int, out_tail, w_tail, gain_lin,
     pcm24; it is read through its pointer, so there is no host sync).
     Returns fresh tensors, as chunk_tail_plain does.
 
-    Counts each launch in ``chunk_tail_cuda.launches``."""
+    Counts each launch in ``chunk_tail_cuda.launches``, and per variant
+    in ``chunk_tail_cuda.by_variant[(norm, transport, C)]``."""
     F, C, n_fft, hop, k = _check_tail(z, win, win2, out_tail, w_tail, norm,
                                       transport)
     pcm24 = transport == "pcm24"
@@ -212,7 +218,9 @@ def chunk_tail_cuda(z, win, win2, n_valid: int, out_tail, w_tail, gain_lin,
             TRANSPORTS.index(transport), stream)
     _raise_on(err, "chunk-tail")
     chunk_tail_cuda.launches += 1
+    chunk_tail_cuda.by_variant[(norm, transport, C)] += 1
     return out, peaks, pcm, ola_carry, w_carry
 
 
 chunk_tail_cuda.launches = 0
+chunk_tail_cuda.by_variant = collections.Counter()
