@@ -170,6 +170,7 @@ def test_process_array_degenerate():
     np.testing.assert_array_equal(y_t, y_j)
     assert info_t["n_frames"] == info_j["n_frames"] == 0
     assert set(info_j) <= set(info_t)
+    assert info_t["device"] == "cpu" and "levels_s" in info_t["timings"]
 
 
 @pytest.mark.parametrize("ext", ["flac", "wav"])
@@ -398,6 +399,7 @@ def test_degenerate_short_file_writes_csv(tmp_path):
     stats_j = jad.process(ip, tmp_path / "j.flac", jad.AdaptiveParams(),
                           state_csv_path=tmp_path / "sj.csv")
     assert stats["n_frames"] == 0
+    assert stats["device"] == "cpu" and "wall_s" in stats["timings"]
     for k in stats_j:
         if k != "out_path":
             assert stats[k] == stats_j[k], k

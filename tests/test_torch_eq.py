@@ -176,20 +176,39 @@ def test_apply_eq_dividing_frames_writes_tail_piece(tmp_path):
     _same_stream(pj, pt, res_j, res_t)
 
 
-def test_apply_eq_f32_transport_equals_pcm24(tmp_path):
-    """The float readback (a sink without raw bytes would take it) renders
-    the file of the device-packed path to within 1 LSB."""
+def test_apply_eq_f32_transport_equals_pcm24(tmp_path, monkeypatch):
+    """A sink that takes no raw bytes (a float WAV) gets the float
+    readback on both packages: floats <= 1e-5 of the reference's f32 path,
+    and within 1 LSB of the port's own device-packed PCM_24 render."""
+    from tomatis_tpu.io import audio as jaudio
+    from tomatis_tpu.models import standard as jstandard
     x = _signal(2.0)
     ip = tmp_path / "in.wav"
     audio.write(ip, x, SR, subtype="PCM_24")
     g = eq.build_gain_per_bin(SR, N_FFT, np.array([50., 5000.], np.float32),
                               np.array([2., -2.], np.float32))
-    ra = eq.apply_gain_stream(ip, tmp_path / "a.wav", g, pad_len=2048,
-                              frames_per_chunk=8, device="cpu")
-    rb = eq.apply_gain_stream(ip, tmp_path / "b.wav", g, pad_len=2048,
-                              frames_per_chunk=8, device="cpu",
-                              transport="f32")
+    kw = dict(pad_len=2048, frames_per_chunk=8)
+    ra = eq.apply_gain_stream(ip, tmp_path / "a.wav", g, device="cpu", **kw)
+
+    def float_sink(mod):
+        def opener(out_path, sr, ch, *_):
+            return (mod.AudioFile(str(out_path), "w", samplerate=sr,
+                                  channels=ch, subtype="FLOAT"),
+                    str(out_path), None, None, None)
+        return opener
+
+    monkeypatch.setattr(eq, "open_checkpointed_sink", float_sink(audio))
+    monkeypatch.setattr(jstandard, "open_checkpointed_sink",
+                        float_sink(jaudio))
+    rb = eq.apply_gain_stream(ip, tmp_path / "b.wav", g, device="cpu", **kw)
+    rj = jeq.apply_gain_stream(ip, tmp_path / "j.wav", g, **kw)
     assert (ra["transport"], rb["transport"]) == ("pcm24", "f32")
+    assert rb["n_frames"] == rj["n_frames"]
+    yb, _ = audio.read(tmp_path / "b.wav")
+    yj, _ = audio.read(tmp_path / "j.wav")
+    assert yb.shape == yj.shape
+    assert np.abs(yb - yj).max() <= 1e-5
+    np.testing.assert_allclose(rb["peak_seen"], rj["peak_seen"], rtol=1e-5)
     d = np.abs(_pcm(tmp_path / "a.wav") - _pcm(tmp_path / "b.wav"))
     assert d.max() <= 1
     np.testing.assert_allclose(ra["peak_seen"], rb["peak_seen"], rtol=1e-6)

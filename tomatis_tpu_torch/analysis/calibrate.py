@@ -179,6 +179,4 @@ def calibrate_v2(orig_path, base_path, gate_ui: float = 50.0,
     result["music_ratio"] = music_ratio
     result["gain_db0"] = gain_db0
     result["timings"] = _timings(t_0, t_1, t_2, t_3)
-    result["grid_lanes"] = sum(len(c) for c in combos_b)
-    result["grid_frames"] = int(len(fs_fit))
     return result

@@ -217,7 +217,8 @@ def process_array(x: np.ndarray, sr: int, p: AdaptiveParams | None = None,
                               c2_ratio=0.0, switch_count=0,
                               atten_db=atten_db, levels=levels,
                               states=np.zeros(0, np.int32),
-                              alpha=np.zeros(0, np.float32))
+                              alpha=np.zeros(0, np.float32),
+                              device=str(dev), timings=timings)
     # 2b-4. threshold search, min-hold gate, run stats, snap-first alpha
     # (ref :219-265): one plan shared with process()
     plan = gate_plan(levels, p, min_hold, xfade, device=dev)
@@ -513,12 +514,14 @@ def process(in_path, out_path, p: AdaptiveParams | None = None,
                 _write_state_csv(state_csv_path,
                                  dict(n_frames=0, levels=[], states=[],
                                       alpha=[]), hop, sr)
+            timings["wall_s"] = round(time.perf_counter() - t_start, 4)
             return dict(n_frames=0, optimal_threshold=0.0, c2_ratio=0.0,
                         switch_count=0, switches_per_min=0.0,
                         short_run_ratio=0.0, atten_db=atten_db,
                         min_hold_frames=min_hold, xfade_frames=xfade,
                         params=asdict(p), sr=sr, total=total,
-                        out_path=out_path, device=str(dev))
+                        out_path=out_path, device=str(dev),
+                        timings=timings)
 
         # ---- pass 2: levels -> threshold -> states -> alpha ----
         levels = _stream_levels(fin, total, ch, p, catt, device=dev)

@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from tomatis_tpu_torch.engine.streaming import (ChunkedStftEngine,
-                                                _encode_pcm24, _host,
-                                                resolve_transport)
+                                                _encode_pcm24, _host)
 from tomatis_tpu_torch.io import audio
 from tomatis_tpu_torch.models.controllers import StaticGainController
 from tomatis_tpu_torch.models.standard import (finalize_checkpointed_sink,
@@ -156,16 +155,15 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
                       frames_per_chunk: int = 1024,
                       require_48k_stereo: bool = True,
                       checkpoint_path=None, checkpoint_every: int = 8,
-                      progress=None, device="cuda",
-                      transport: str = "auto") -> dict:
+                      progress=None, device="cuda") -> dict:
     """Stream in -> per-bin gain -> OLA -> out, uncropped (the output length
     is the last frame's end; includes the pre-pad: reference behavior).
     Returns dict(peak_seen, out_path, n_frames, sr, transport, timings).
 
-    transport: "auto" packs PCM_24 on the device when the sink takes raw
-    bytes (every PCM_24 sink does) and reads floats back otherwise; "f32"
-    forces the float readback. peak_seen comes from the kernel's
-    per-hop-block peaks (pcm24) or from the floats (f32).
+    The transport follows the sink: PCM_24 packed on the device when it
+    takes raw bytes (every PCM_24 sink does), floats read back otherwise.
+    peak_seen comes from the kernel's per-hop-block peaks (pcm24) or from
+    the floats (f32).
 
     checkpoint_path enables chunk-granular crash recovery (same scheme as
     the standard processor): the tiny stream state (OLA tails, peak, next
@@ -204,7 +202,8 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
         fout, actual_out, ckpt, resume, stage_path = open_checkpointed_sink(
             out_path, sr, ch, config, checkpoint_path, checkpoint_every)
         try:
-            transport, raw = resolve_transport(transport, fout.supports_raw)
+            raw = fout.supports_raw
+            transport = "pcm24" if raw else "f32"
             engine = ChunkedStftEngine(n_fft, hop, ch, frames_per_chunk,
                                        device=dev)
             controller = StaticGainController(gain_bins).to(dev)
