@@ -6,7 +6,8 @@
 Phases, each fatal on failure (exit code != 0, no result line):
  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
  2. build: nvcc builds every kernel of the main path from csrc/ (sm_90a)
-    and prints each kernel's registers and spills (-Xptxas -v);
+    and prints each kernel's registers and spills (-Xptxas -v); the host
+    C++ compiler builds csrc/flac.cpp and csrc/wire.cpp beside it;
  3. kernels vs plain: each entry point of csrc/ola.cu against its plain
     PyTorch version on the card: the standalone overlap-add at five
     shapes, the fused chunk tail bit for bit in every output at the main
@@ -67,7 +68,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
     size (8437 frames, 37908 lanes);
 13. declick: planted clicks are found and repaired, a clean file passes
     through;
-14. prints the card line, the kernels JSON line and, last, the result
+14. wire codec on the card: for the production chunk shape
+    ([2_099_200, 2] int32 quantised from the programme), a mono one, a
+    16-bit-sourced one (wasted bits on the host encoder), full-scale
+    noise (the raw escape) and digital silence, rice off and on:
+    pack_device on the card equals the C++ encoder byte for byte (where
+    that one strips no wasted bits) and, at a 50_000-sample cut, the
+    numpy oracle encode_np(wasted=False); unpack_device on the card of
+    the host-encoded stream equals the floats exactly; card pack -> C++
+    decode_pcm24 equals the pcm24 bytes. CUDA-event ms of pack and
+    unpack beside their byte bounds, the stream's bytes per sample, the
+    C++ encode and decode ms per chunk;
+15. wire paths: `process --transport wire` through the CLI on the 60 s
+    WAV and process(transport="wire") on a 10-minute FLAC, each against
+    the pcm24 run of the same file: output bytes and state CSV equal,
+    one chunk-tail launch per chunk, wire_stats printed, the 10-minute
+    file staged by the worker process;
+16. the threaded pipeline, measured: the 10-minute FLAC to FLAC on pcm24
+    (the default) with its stage timers and wall beside this script's
+    own timing of decoding the whole input and of encoding the whole
+    output alone and the array run's stream stages; the same for
+    apply_eq on that FLAC; peak device memory with three chunks in
+    flight;
+17. convert: FLAC -> WAV -> FLAC through the int24 copy keeps every
+    sample;
+18. prints the card line, the kernels JSON line and, last, the result
     line {"ok": true, "device": {...}}. Each path is driven with the
     launch counts set to 0 just before it and read just after:
     `launches_by_path` holds those readings, `launches` their sum.
@@ -968,6 +993,295 @@ def declick_path(audio, tmp):
         f"stereo); the clean file passes through sample for sample")
 
 
+def wire_inputs(x: np.ndarray, seed: int) -> list:
+    """(name, int32 [n, ch]) of the wire codec's input classes at the
+    production chunk length n = 1024*2048 + 2048."""
+    n = 1024 * 2048 + 2048
+    rng = np.random.default_rng(seed + 100)
+    # the programme 8 dB up: about the level the processed output has
+    v = np.clip(np.rint(x[:n] * np.float32(2.5) * 8388608.0),
+                -8388608, 8388607).astype(np.int32)
+    return [("programme", v),
+            ("mono", np.ascontiguousarray(v[:, :1])),
+            ("16bit_sourced", (v >> 8) << 8),
+            ("fullscale_noise",
+             rng.integers(-8388608, 8388608, (n, 2)).astype(np.int32)),
+            ("silence", np.zeros((n, 2), np.int32))]
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host wall time (ms) of n calls."""
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def wire_codec_phase(torch, x: np.ndarray, seed: int):
+    """Phase 14: the wire codec's device half on the card against its
+    host halves, then its times."""
+    from tomatis_tpu_torch.io import wirecodec
+    from tomatis_tpu_torch.ops import wire
+    from tomatis_tpu_torch.utils.pcm import le24_from_i32
+    if not wirecodec.available():
+        fail("the native wire codec (csrc/wire.cpp) did not build or load")
+    small = 50_000
+    for name, v in wire_inputs(x, seed):
+        n, ch = v.shape
+        vd = torch.from_numpy(v).cuda()
+        expect = v.astype(np.float32) / np.float32(8388608.0)
+        pcm = le24_from_i32(v.reshape(-1))
+        notes = []
+        for rice in (False, True):
+            words, used = wire.pack_device(vd, n, ch, rice)
+            torch.cuda.synchronize()
+            used = int(used)
+            stream = words[:used].cpu().numpy().view(np.uint8)
+            if bool(words[used:].any()):
+                fail(f"wire {name} rice={rice}: words beyond used are not 0")
+            cbuf = wirecodec.encode_i32(v, rice=rice)
+            wasted = (int(cbuf[12:16].view(np.uint32)[0]) >> 18) & 0x3FF
+            if not wasted and not np.array_equal(stream, cbuf):
+                fail(f"wire {name} rice={rice}: pack_device on the card "
+                     f"differs from the C++ encoder ({len(stream)} vs "
+                     f"{len(cbuf)} bytes)")
+            if not np.array_equal(wirecodec.decode_pcm24(stream, n, ch), pcm):
+                fail(f"wire {name} rice={rice}: card pack -> C++ "
+                     f"decode_pcm24 is not the pcm24 payload")
+            # the numpy oracle at a cut it handles quickly
+            vs = np.ascontiguousarray(v[:small])
+            ws, us = wire.pack_device(vd[:small].contiguous(), small, ch, rice)
+            oracle = wire.encode_np(vs, rice=rice, wasted=False)
+            got = ws[:int(us)].cpu().numpy().view(np.uint8)
+            if not np.array_equal(got, oracle):
+                fail(f"wire {name} rice={rice}: pack_device on the card "
+                     f"differs from encode_np at n={small}")
+            # the host-encoded stream (wasted bits and all) on the card
+            b = np.concatenate([cbuf, np.zeros((-len(cbuf)) % 4, np.uint8)])
+            f = wire.unpack_device(torch.from_numpy(b).cuda(), n, ch, rice)
+            if not np.array_equal(f.cpu().numpy(), expect):
+                fail(f"wire {name} rice={rice}: unpack_device on the card "
+                     f"of the C++ stream is not the floats")
+            f2 = wire.unpack_device(words, n, ch, rice)
+            if not np.array_equal(f2.cpu().numpy(), expect):
+                fail(f"wire {name} rice={rice}: unpack_device of the card's "
+                     f"own stream is not the floats")
+            notes.append(f"rice {'on' if rice else 'off'} card "
+                         f"{used * 4 / (n * ch):.3f} B/sample"
+                         + (f", host {len(cbuf) / (n * ch):.3f} (wasted bits)"
+                            if wasted else ""))
+        log(f"wire codec {name} [{n}, {ch}]: pack == C++ == encode_np, "
+            f"unpack exact, pack -> decode_pcm24 == pcm24 bytes; "
+            + "; ".join(notes))
+
+    # times at the production chunk, programme material
+    name, v = wire_inputs(x, seed)[0]
+    n, ch = v.shape
+    vd = torch.from_numpy(v).cuda()
+    M = wire.max_words(n, ch)
+    for rice in (False, True):
+        words, used = wire.pack_device(vd, n, ch, rice)
+        used = int(used)
+        cbuf = wirecodec.encode_i32(v, rice=rice)
+        bd = torch.from_numpy(cbuf.view(np.int32).copy()).cuda()
+        pack_ms, unpack_ms = time_turns(torch, [
+            lambda: wire.pack_device(vd, n, ch, rice),
+            lambda: wire.unpack_device(bd, n, ch, rice)], n=5)
+        # each input read once, each output written once: the pack reads
+        # the ints and writes its whole fixed-size buffer; the unpack
+        # reads the stream and writes the floats
+        pack_b = n * ch * 4 + M * 4
+        unpack_b = len(cbuf) + n * ch * 4
+        enc_ms = host_ms(lambda: wirecodec.encode_i32(v, rice=rice))
+        dec_ms = host_ms(lambda: wirecodec.decode_pcm24(cbuf, n, ch))
+        log(f"wire codec times, production chunk [{n}, {ch}] programme, rice "
+            f"{'on' if rice else 'off'}: pack_device {pack_ms:.3f} ms (byte "
+            f"bound {pack_b / HBM_BYTES_PER_S * 1e3:.4f} ms for "
+            f"{pack_b / 1e6:.1f} MB), unpack_device {unpack_ms:.3f} ms (byte "
+            f"bound {unpack_b / HBM_BYTES_PER_S * 1e3:.4f} ms for "
+            f"{unpack_b / 1e6:.1f} MB); stream {used * 4 / (n * ch):.4f} "
+            f"B/sample ({used * 4} bytes against {n * ch * 3} of pcm24); C++ "
+            f"encode_i32 {enc_ms:.1f} ms, decode_pcm24 {dec_ms:.1f} ms a "
+            f"chunk (host wall, median of 5)")
+
+
+def files_equal(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def codecs_alone(audio, in_path: str, out_path: str, tmp: str,
+                 block: int, int_read: bool) -> tuple:
+    """This script's own timing of the two host codecs of a FLAC-to-FLAC
+    run, each alone on one thread: decoding the whole input in the
+    stream's blocks, and encoding the whole output from its PCM_24 bytes
+    in 5 s pieces. Returns (decode_s, encode_s)."""
+    from tomatis_tpu_torch.utils.pcm import le24_from_i32
+    t0 = time.perf_counter()
+    with audio.AudioFile(in_path, "r") as f:
+        read = f.read_int24 if int_read else f.read
+        while len(read(block)):
+            pass
+    decode_s = time.perf_counter() - t0
+    with audio.AudioFile(out_path, "r") as f:
+        sr, ch = f.samplerate, f.channels
+        raw = le24_from_i32(f.read_int24().reshape(-1))
+    piece = 5 * sr * ch * 3
+    t0 = time.perf_counter()
+    with audio.AudioFile(os.path.join(tmp, "alone.flac"), "w", samplerate=sr,
+                         channels=ch, subtype="PCM_24") as f:
+        for i in range(0, len(raw), piece):
+            f.write_raw(raw[i:i + piece])
+    encode_s = time.perf_counter() - t0
+    return decode_s, encode_s
+
+
+def wire_and_thread_paths(torch, cuda_ola, audio, standard, eq, x, ip, op,
+                          cp, stream_alone_s, tmp) -> dict:
+    """Phases 15 to 17. x: the long programme; ip/op/cp: the 60 s WAV, its
+    pcm24 output and state CSV (phase 5); stream_alone_s: the stage timers'
+    sum of the warm array run of x (phase 4: no file codec in it)."""
+    from tomatis_tpu_torch.cli import main as cli_main
+    from tomatis_tpu_torch.engine import staging
+    p = standard.StandardParams()
+    launches = {}
+
+    # -- 15. wire paths ------------------------------------------------------
+    wop, wcp = os.path.join(tmp, "wire.wav"), os.path.join(tmp, "wire.csv")
+    reset_counts(cuda_ola)
+    rc = cli_main.main(["process", "-i", ip, "-o", wop, "--state_csv", wcp,
+                        "--transport", "wire", "--device", "cuda"])
+    chunks60 = len(chunk_schedule(standard, p, audio.info(ip).frames))
+    launches["wire_wav"] = read_counts(cuda_ola, chunks60, "wire WAV path",
+                                       ("eps", "pcm24", 2))
+    if rc != 0:
+        fail(f"`process --transport wire` exited {rc}")
+    if not files_equal(wop, op) or not files_equal(wcp, cp):
+        fail("wire WAV path: output or state CSV differs from the pcm24 "
+             "run's")
+    log(f"wire WAV path (CLI, 60 s WAV to WAV): output and state CSV equal "
+        f"the pcm24 run's byte for byte, {launches['wire_wav']['chunk_tail']}"
+        f" chunk-tail launches over {chunks60} chunks")
+
+    # the long programme as a FLAC, a frame of silence at both ends (the
+    # EQ render's edges, see the appliers' phase)
+    xl = x.copy()
+    xl[:4096] = 0.0
+    xl[-8192:] = 0.0
+    lip = os.path.join(tmp, "long.flac")
+    t0 = time.perf_counter()
+    audio.write(lip, xl, SR, subtype="PCM_24")
+    log(f"long FLAC: {len(xl) / SR:.0f} s written in "
+        f"{time.perf_counter() - t0:.3f} s, {os.path.getsize(lip)} bytes")
+    del xl
+    runs = {}
+    for tr in ("pcm24", "wire", "pcm24", "wire"):   # in turns, the last kept
+        o = os.path.join(tmp, f"long_{tr}.flac")
+        c = os.path.join(tmp, f"long_{tr}.csv")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(cuda_ola)
+        st = standard.process(lip, o, p, state_csv_path=c, device="cuda",
+                              transport=tr)
+        launches[f"long_{tr}"] = read_counts(
+            cuda_ola, st["chunks"], f"10-minute {tr} path",
+            ("eps", "pcm24", 2))
+        st["peak_mem"] = torch.cuda.max_memory_allocated()
+        runs.setdefault(tr, []).append(st)
+        log(f"long FLAC to FLAC, {tr}: {st['chunks']} chunks, producer "
+            f"{st['producer']}, wall {st['wall_seconds']:.3f} s, realtime "
+            f"factor {st['realtime_factor']:.2f}x, stages {st['timings']}, "
+            f"wire {st['wire']}, peak device memory "
+            f"{st['peak_mem'] / 1e9:.3f} GB")
+    sw, sp = runs["wire"][-1], runs["pcm24"][-1]
+    if sw["chunks"] <= 8:
+        fail(f"the long file has {sw['chunks']} chunks: too short for the "
+             f"staging process")
+    if sw["producer"] != "process" or sp["producer"] != "thread":
+        fail(f"producers: wire {sw['producer']} (expected the staging "
+             f"process), pcm24 {sp['producer']} (expected the thread)")
+    if not staging._WORKER or not staging._WORKER[0].alive():
+        fail("the staging worker process is not alive after its run")
+    if not (sw["wire"]["in_bytes"] > 0 and sw["wire"]["out_bytes"] > 0
+            and sw["wire"]["in_raw_chunks"] == 0):
+        fail(f"wire stats of the long run: {sw['wire']}")
+    for ext in ("flac", "csv"):
+        if not files_equal(os.path.join(tmp, f"long_wire.{ext}"),
+                           os.path.join(tmp, f"long_pcm24.{ext}")):
+            fail(f"long wire path: the .{ext} differs from the pcm24 run's")
+    n_s = sw["total"] * 2
+    log(f"wire against pcm24, long FLAC to FLAC: bytes and state CSV equal; "
+        f"walls wire {[round(r['wall_seconds'], 3) for r in runs['wire']]} s,"
+        f" pcm24 {[round(r['wall_seconds'], 3) for r in runs['pcm24']]} s; "
+        f"link bytes per sample: in {sw['wire']['in_bytes'] / n_s:.3f} "
+        f"(against 4 of float32), out {sw['wire']['out_bytes'] / n_s:.3f} "
+        f"(against 3 of pcm24)")
+
+    # -- 16. the threaded pipeline, measured ---------------------------------
+    lop = os.path.join(tmp, "long_pcm24.flac")
+    dec_s, enc_s = codecs_alone(audio, lip, lop, tmp, 1024 * 2048, False)
+    t = sp["timings"]
+    stages = sum(t.values())
+    overlap_s = dec_s + enc_s + stream_alone_s - sp["wall_seconds"]
+    log(f"threaded pipeline, long FLAC to FLAC on pcm24: wall "
+        f"{sp['wall_seconds']:.3f} s; this thread's stage timers {t} (sum "
+        f"{stages:.3f} s); alone on one thread: decoding the input "
+        f"{dec_s:.3f} s, encoding the output {enc_s:.3f} s, the array run's "
+        f"stream stages {stream_alone_s:.3f} s; overlap = decode + encode + "
+        f"stream - wall = {overlap_s:.3f}"
+        f" s; peak device memory with three chunks in flight "
+        f"{sp['peak_mem'] / 1e9:.3f} GB")
+
+    import csv
+    eq_csv = os.path.join(tmp, "curve_long.csv")
+    with open(eq_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["freq_hz", "delta_db_raw", "delta_db_smooth"])
+        for fr in np.geomspace(20, 20000, 96):
+            w.writerow([fr, 0.0, 4.0 * np.sin(np.log10(fr) * 2.0)])
+    eop = os.path.join(tmp, "long_eq.flac")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(cuda_ola)
+    er = eq.apply_eq(lip, eop, eq_csv, device="cuda")
+    launches["long_apply_eq"] = read_counts(
+        cuda_ola, er["chunks"], "10-minute apply_eq", ("eps", "pcm24", 2))
+    if er["gain_protected_path"] or not 0 < er["peak_seen"] <= 0.99:
+        fail(f"long apply_eq: peak_seen {er['peak_seen']}, gain-protect "
+             f"{er['gain_protected_path']}")
+    edec_s, eenc_s = codecs_alone(audio, lip, eop, tmp, 1024 * 2048, True)
+    te = er["timings"]
+    log(f"threaded pipeline, long apply_eq FLAC to FLAC (int24 input, "
+        f"pcm24): {er['chunks']} chunks, wall {te['wall_s']:.3f} s, stages "
+        f"{te}; alone on one thread: decoding the input as ints "
+        f"{edec_s:.3f} s, encoding the output {eenc_s:.3f} s; hidden codec "
+        f"time >= decode + encode - wall = "
+        f"{edec_s + eenc_s - te['wall_s']:.3f} s; peak_seen "
+        f"{er['peak_seen']:.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+    # -- 17. convert ---------------------------------------------------------
+    from tomatis_tpu_torch.cli import convert as cli_convert
+    cw, cf = os.path.join(tmp, "conv.wav"), os.path.join(tmp, "conv.flac")
+    src = os.path.join(tmp, "long_wire.flac")
+    t0 = time.perf_counter()
+    if cli_convert.main(["-i", src, "-o", cw]) != 0 \
+            or cli_convert.main(["-i", cw, "-o", cf]) != 0:
+        fail("convert exited non-zero")
+    conv_s = time.perf_counter() - t0
+    with audio.AudioFile(src, "r") as fa, audio.AudioFile(cf, "r") as fb, \
+            audio.AudioFile(cw, "r") as fc:
+        va, vb, vc = fa.read_int24(), fb.read_int24(), fc.read_int24()
+    if not (np.array_equal(va, vb) and np.array_equal(va, vc)):
+        fail("convert: FLAC -> WAV -> FLAC changed samples")
+    log(f"convert: FLAC -> WAV -> FLAC through the int24 copy keeps all "
+        f"{len(va)} frames ({conv_s:.3f} s for both)")
+    staging.shutdown_workers()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -990,18 +1304,20 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------------
     # one compiler per source, started together: nvcc for the kernels,
-    # the host C++ compiler for the FLAC codec
+    # the host C++ compiler for the FLAC and the wire codec
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         jobs = {"csrc/ola.cu": pool.submit(cuda_ola.build),
-                "csrc/flac.cpp": pool.submit(load_library, "flac")}
+                "csrc/flac.cpp": pool.submit(load_library, "flac"),
+                "csrc/wire.cpp": pool.submit(load_library, "wire")}
         for src, job in jobs.items():
             try:
                 job.result()
             except Exception as e:   # reported, then the run fails
                 fail(f"{src} did not build: {e}")
-    log(f"build: {time.perf_counter() - t0:.1f} s (csrc/ola.cu with nvcc and "
-        f"csrc/flac.cpp with the host C++ compiler, in parallel; compiled in "
+    log(f"build: {time.perf_counter() - t0:.1f} s (csrc/ola.cu with nvcc, "
+        f"csrc/flac.cpp and csrc/wire.cpp with the host C++ compiler, all "
+        f"started together; compiled in "
         f"this run: {sorted(BUILD_LOG)}, a library newer than its source is "
         f"kept)")
     for src, text in BUILD_LOG.items():
@@ -1040,6 +1356,9 @@ def main() -> int:
             f"{wall:.3f} s, realtime factor {len(x) / SR / wall:.2f}x, peak "
             f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
             f"GB, stages {stats['timings']}")
+    # the warm run's stream stages, the collected output's decode left out
+    stream_alone_s = sum(v for k, v in stats["timings"].items()
+                         if k != "output_decode_s")
 
     # cross-check the first 60 s against the port's own CPU run
     x60 = np.ascontiguousarray(x[:60 * SR])
@@ -1263,9 +1582,15 @@ def main() -> int:
     launches.update(match_path(torch, cuda_ola, audio, standard, args.seed,
                                tmp))
     declick_path(audio, tmp)
+
+    # -- 14-17. wire codec, wire paths, the threaded pipeline, convert -------
+    wire_codec_phase(torch, x, args.seed)
+    launches.update(wire_and_thread_paths(
+        torch, cuda_ola, audio, standard, eq, x, ip, op, cp, stream_alone_s,
+        tmp))
     tmp_dir.cleanup()
 
-    # -- 14. result ----------------------------------------------------------
+    # -- 18. result ----------------------------------------------------------
     kernels = [dict(name=name, route="cuda",
                     source="tomatis_tpu_torch/csrc/ola.cu",
                     replaces="tomatis_tpu/ops/pallas_ola.py:75",

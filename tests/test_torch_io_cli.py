@@ -1,5 +1,5 @@
 """Port's host side: WAV and FLAC I/O, transports, flush plan, CLI,
-checkpoint flag, the one refusal left (wire), validate on its output."""
+checkpoint flag, the wire transport by name, validate on its output."""
 import json
 
 import numpy as np
@@ -74,10 +74,11 @@ def test_resolve_transport():
     assert streaming.resolve_transport("auto", True) == ("pcm24", True)
     assert streaming.resolve_transport("auto", False) == ("f32", False)
     assert streaming.resolve_transport("f32", True) == ("f32", False)
-    with pytest.raises(ValueError, match="not yet ported"):
-        streaming.resolve_transport("wire", True)
-    with pytest.raises(ValueError):
-        streaming.resolve_transport("pcm24", False)
+    assert streaming.resolve_transport("wire", True) == ("wire", True)
+    assert streaming.resolve_transport("pcm24", True) == ("pcm24", True)
+    for tr in ("wire", "pcm24"):
+        with pytest.raises(ValueError, match="raw PCM_24"):
+            streaming.resolve_transport(tr, False)
     with pytest.raises(ValueError):
         streaming.resolve_transport("bogus", True)
 
@@ -168,10 +169,17 @@ def test_cli_process_on_cpu(tmp_path, capsys):
                           "--frames_per_chunk", "16"]) == 0
     assert not ck.exists() and audio.info(fo).frames == len(x)
     np.testing.assert_array_equal(audio.read(fo)[0], audio.read(op)[0])
-    # the wire transport is still refused, before the output is touched
+    # the wire transport, asked for by name, writes the same bytes; an
+    # unknown one is refused by the parser before the output is touched
     before = fo.read_bytes()
-    assert cli_main.main(["process", "-i", str(fi), "-o", str(fo),
-                          "--device", "cpu", "--transport", "wire"]) == 1
+    fw = tmp_path / "w.flac"
+    assert cli_main.main(["process", "-i", str(fi), "-o", str(fw),
+                          "--device", "cpu", "--transport", "wire",
+                          "--frames_per_chunk", "16"]) == 0
+    assert fw.read_bytes() == before
+    with pytest.raises(SystemExit):
+        cli_main.main(["process", "-i", str(fi), "-o", str(fo),
+                       "--device", "cpu", "--transport", "bogus"])
     assert fo.read_bytes() == before
     assert cli_main.main(["nope"]) == 2
     assert cli_main.main([]) == 0

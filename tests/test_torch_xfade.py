@@ -214,9 +214,13 @@ def test_cli_process_xfade_and_convert(tmp_path, capsys):
     side = json.loads((tmp_path / "out.flac.params.json").read_text())
     assert side["tool"] == "process-xfade" and side["xfade_ms"] == 100.0
     assert "alpha" in read_state_csv(cp)
-    # the wire transport is still refused
-    assert cli_main.main(["process-xfade", "-i", str(ip), "-o", str(op),
-                          "--device", "cpu", "--transport", "wire"]) == 1
+    # the wire transport, asked for by name, writes the same bytes
+    ow = tmp_path / "out_wire.flac"
+    assert cli_main.main(["process-xfade", "-i", str(ip), "-o", str(ow),
+                          "--xfade_ms", "100", "--gate_ui", "60",
+                          "--device", "cpu", "--transport", "wire",
+                          "--frames_per_chunk", "16"]) == 0
+    assert ow.read_bytes() == op.read_bytes()
     capsys.readouterr()
     # convert: FLAC -> WAV -> FLAC keeps every PCM_24 sample
     wp, fp = tmp_path / "c.wav", tmp_path / "c.flac"

@@ -4,9 +4,10 @@
 
 The processors fall back to WAV when FLAC cannot be encoded and print
 this command as the way back. Streams in 30 s blocks (bounded memory on
-hour-long files) through float32, which is exact for PCM_24 payloads
-(24-bit ints are representable) and rounds once for narrower targets.
-Host only: no device work, so no --device flag.
+hour-long files). A source of at most 24 bits going to a PCM_24 sink is
+copied as integers (read_int24 -> write_raw: no float round trip);
+anything else goes through float32, which rounds once for narrower
+targets. Host only: no device work, so no --device flag.
 """
 from __future__ import annotations
 
@@ -29,23 +30,32 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from tomatis_tpu_torch.io import audio
+    from tomatis_tpu_torch.utils.pcm import le24_from_i32
 
     total = 0
     with audio.AudioFile(args.input, "r") as fin, \
             audio.AudioFile(args.output, "w", samplerate=fin.samplerate,
                             channels=fin.channels,
                             subtype=args.subtype) as fout:
+        lossless = fin.int24_readable and fout.supports_raw
         while True:
-            x = fin.read(_BLOCK)
-            if len(x) == 0:
-                break
-            fout.write(x)
-            total += len(x)
+            if lossless:
+                v = fin.read_int24(_BLOCK)
+                if len(v) == 0:
+                    break
+                fout.write_raw(le24_from_i32(v.reshape(-1)))
+                total += len(v)
+            else:
+                x = fin.read(_BLOCK)
+                if len(x) == 0:
+                    break
+                fout.write(x)
+                total += len(x)
         sr = fin.samplerate
+    path_mode = "raw 24-bit copy" if lossless else "float32"
     print(f"{args.input} -> {args.output}: {total} samples/ch @ {sr} Hz, "
-          f"{args.subtype}")
+          f"{args.subtype} ({path_mode})")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -44,9 +44,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print per-chunk progress")
     ap.add_argument("--transport", default="auto",
                     choices=["auto", "wire", "pcm24", "f32"],
-                    help="device->host transport: pcm24 = device-packed "
-                         "PCM_24 bytes, f32 = raw floats, auto picks pcm24; "
-                         "wire is not yet ported")
+                    help="host<->device link transport: wire = lossless "
+                         "compression both ways (thin links), pcm24 = "
+                         "device-packed PCM_24 bytes without the codec "
+                         "(PCIe hosts), f32 = raw floats; auto picks pcm24")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, cuda:N or cpu)")
     add_engine_flags(ap)

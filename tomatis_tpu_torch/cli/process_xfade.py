@@ -36,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print per-chunk progress")
     ap.add_argument("--transport", default="auto",
                     choices=["auto", "wire", "pcm24", "f32"],
-                    help="device->host transport (see process)")
+                    help="host<->device link transport (see process)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, cuda:N or cpu)")
     add_engine_flags(ap)

@@ -15,11 +15,26 @@ tomatis_tpu/engine/streaming.py.
   samples with per-flush peak clamping to 0.999, via an explicit flush
   plan (flush boundaries change the audible output).
 
-The stream loop dispatches single-threaded and in order; the reference's
-threaded pipeline and process staging hide a tunnelled link and are
-queued in ROADMAP.md, as is the wire transport. Checkpoint/resume
+The stream loop is the reference's: a producer (a thread, or the staging
+process of engine/staging.py for long wire-input files) reads the file
+and, on the wire transport, C++-encodes the input; the calling thread
+uploads, enqueues the chunk step and moves every chunk through the
+depth-3 pipeline of utils/pipeline.py (S1 a CUDA event wait and a
+non-blocking readback into pinned memory, S2 the wire stream's fetch once
+its length is known, S3 the hand-over); an ordered writer thread decodes,
+routes, drains the flush cuts and calls the sinks. All enqueueing stays
+on the calling thread (torch's current stream and device are
+thread-local). What the threads hide on a PCIe-attached card is not a
+link but the host codecs: the input file's decode and the output file's
+encode overlap each other and the device. Checkpoint/resume
 (engine/checkpoint.py) snapshots the stream state between chunks, under
-the reference's .npz key names.
+the reference's .npz key names, with the pipeline drained first.
+
+Transports: "f32" reads floats back, "pcm24" PCM_24 bytes quantised on
+the device, "wire" the same bytes losslessly compressed on the device
+(ops/wire.py) and decoded by the C++ codec on the host, with the input
+compressed the other way round. All three write the same file to <= 1
+LSB (pcm24 and wire: the same bytes).
 """
 from __future__ import annotations
 
@@ -31,12 +46,77 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tomatis_tpu_torch.engine import staging
 from tomatis_tpu_torch.ops import cuda_ola, stft
+from tomatis_tpu_torch.ops import wire as wire_ops
 from tomatis_tpu_torch.ops.dsp import EPS, PEAK_LIMIT, frame_levels_dbfs
 from tomatis_tpu_torch.utils.pcm import le24_from_i32
+from tomatis_tpu_torch.utils.pipeline import (OrderedWorker, Prefetcher,
+                                              StagedPipeline)
 from tomatis_tpu_torch.utils.rolling import RollingReader
 
 FLUSH_THRESHOLD = 48000 * 5  # hard-coded in the reference (src/process_tomatis.py:420)
+
+# Static rice switches of the wire transport, one per link DIRECTION (the
+# per-block rice mode is a stream property; encoder and decoder of each
+# direction pair by construction, and the host decoders accept either
+# stream). Rice saves a few percent of link bytes on program material and
+# costs device time on both halves:
+# - input (host C++ encode -> device unpack): OFF, as in the reference.
+# - output (device pack -> host C++ decode): by the measured link.
+#   resolve_rice_out() probes the device->host rate once; the
+#   TOMATIS_WIRE_RICE_OUT env var forces 0/1.
+WIRE_RICE_IN = False
+WIRE_RICE_OUT = False
+
+# Device->host rate below which rice-out pays: the bytes rice saves per
+# chunk over the extra device time of the rice pack. chip_smoke.py reads
+# both at the production chunk on an H100 80GB HBM3 (700 W): 0.371 MB
+# saved for 16.6 ms more pack time, so the break-even is about 22 MB/s
+# (PERF.md). A PCIe link is three orders of magnitude above it.
+RICE_OUT_BW_THRESHOLD_MBPS = 22.0
+
+_RICE_OUT_MEMO: dict = {}
+
+
+def probe_d2h_mbps(mb: float = 4.0, fresh: bool = False,
+                   device="cuda") -> float:
+    """One-shot device->host bandwidth estimate in MB/s (memoised per
+    process): time the copy of a device tensor of `mb` MB into pinned
+    memory. `fresh=True` bypasses and refreshes the memo. Raises without
+    a CUDA device: there is no link to measure."""
+    if not fresh and "bw" in _RICE_OUT_MEMO:
+        return _RICE_OUT_MEMO["bw"]
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("probe_d2h_mbps needs a CUDA device")
+    n = int(mb * 1e6 / 4)
+    a = torch.arange(n, dtype=torch.float32, device=dev) + 1.0
+    host = torch.empty(n, dtype=torch.float32, pin_memory=True)
+    host.copy_(a)                                # warm the path
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    host.copy_(a, non_blocking=True)
+    torch.cuda.synchronize(dev)
+    bw = host.numel() * 4 / 1e6 / max(time.perf_counter() - t0, 1e-9)
+    _RICE_OUT_MEMO["bw"] = bw
+    return bw
+
+
+def resolve_rice_out(device="cuda") -> bool:
+    """Engine-wide rice-out policy: env force (TOMATIS_WIRE_RICE_OUT=0/1)
+    or, by default, one memoised d2h bandwidth probe against
+    RICE_OUT_BW_THRESHOLD_MBPS. A CPU device has no link: the module
+    default."""
+    env = os.environ.get("TOMATIS_WIRE_RICE_OUT", "auto")
+    if env in ("0", "1"):
+        return env == "1"
+    if "choice" not in _RICE_OUT_MEMO:
+        if torch.device(device).type != "cuda":
+            return WIRE_RICE_OUT
+        _RICE_OUT_MEMO["choice"] = (probe_d2h_mbps(device=device)
+                                    < RICE_OUT_BW_THRESHOLD_MBPS)
+    return _RICE_OUT_MEMO["choice"]
 
 
 def ramp_disabled() -> bool:
@@ -50,21 +130,72 @@ def ramp_disabled() -> bool:
 def resolve_transport(transport: str, supports_raw: bool):
     """Resolve a user-facing transport against the sink.
 
-    Returns (resolved transport, byte_payload). On the port "auto" picks
-    pcm24 on a raw-capable sink (the reference's choice for PCIe-attached
-    hosts), f32 otherwise. "wire" is not yet ported."""
+    transport: "auto" | "wire" | "pcm24" | "f32". Returns (resolved
+    transport, byte_payload), byte_payload saying that the sink receives
+    raw PCM_24 bytes (write_raw) rather than float samples. On the port
+    "auto" picks pcm24 on a raw-capable sink (the reference's advice for
+    PCIe-attached hosts, where the link is free and host cores are
+    scarce), f32 otherwise; "wire" runs when asked for by name. A byte
+    transport on a sink that cannot take raw PCM_24 is an error, not a
+    silent downgrade."""
     if transport not in ("auto", "wire", "pcm24", "f32"):
         raise ValueError(f"unknown transport {transport!r}")
-    if transport == "wire":
-        raise ValueError("the 'wire' transport is not yet ported to the "
-                         "PyTorch package (queued in ROADMAP.md); use "
-                         "pcm24 or f32")
     if transport == "auto":
         transport = "pcm24" if supports_raw else "f32"
-    elif transport == "pcm24" and not supports_raw:
-        raise ValueError("transport 'pcm24' requires a sink that accepts "
-                         "raw PCM_24 bytes")
-    return transport, transport == "pcm24"
+    elif transport in ("wire", "pcm24") and not supports_raw:
+        raise ValueError(f"transport {transport!r} requires a sink that "
+                         "accepts raw PCM_24 bytes")
+    return transport, transport in ("wire", "pcm24")
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on `device`. On a card: through pinned memory
+    with a non-blocking copy (the caching host allocator keeps the pinned
+    block until the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    pinned.copy_(t)
+    return pinned.to(device, non_blocking=True)
+
+
+def stage_encode(sig: np.ndarray, int_in: bool, wire_input: bool = True):
+    """Host half of input staging (safe on a producer thread: file-read
+    products + C++ wire encode only, no torch calls): wire-compress the
+    chunk when it is PCM_24-exact. Int24 sources stay integer end to end;
+    float sources that are not PCM_24-exact ship raw. Returns a tagged
+    item for stage_to_device."""
+    if not wire_input:
+        return ("raw", sig)
+    return staging.host_encode(sig, int_in, WIRE_RICE_IN)
+
+
+def stage_to_device(item, n: int, ch: int, stats: dict | None = None,
+                    device="cuda") -> torch.Tensor:
+    """Device half of input staging (call from the dispatching thread:
+    every enqueue stays on one thread): upload, and unpack wire items on
+    the device, bit-identical to shipping the floats; a raw chunk of
+    PCM_24 ints (an int24 read on a raw transport) is scaled there,
+    v / 2^23, as the file readers scale it. Returns the chunk's float32
+    [n, ch] tensor. stats, when given, accumulates in_bytes /
+    in_raw_chunks."""
+    device = torch.device(device)
+    kind, val = item
+    if kind == "wire":
+        if stats is not None:
+            stats["in_bytes"] += len(val)
+        pad = (-len(val)) % 4
+        if pad:
+            val = np.concatenate([val, np.zeros(pad, np.uint8)])
+        return wire_ops.unpack_device(_upload(val, device), n, ch,
+                                      WIRE_RICE_IN)
+    if kind == "raw_inexact" and stats is not None:
+        stats["in_raw_chunks"] += 1
+    t = _upload(val, device)
+    if t.dtype == torch.int32:
+        t = t.to(torch.float32) / 8388608.0
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +268,7 @@ class ChunkedStftEngine:
         self.emit_full = self.emit_len + self.tail_len
         self.aux_width = frames_per_chunk + n_fft // hop - 1
         self.log_keys: tuple = ()
+        self._log_keys_bound = False
 
     def zero_tails(self):
         return (torch.zeros((self.tail_len, self.channels),
@@ -145,7 +277,8 @@ class ChunkedStftEngine:
                             device=self.device))
 
     def make_chunk_fn(self, controller, transport: str = "f32",
-                      norm: str = "eps") -> Callable:
+                      norm: str = "eps",
+                      rice_out: bool | None = None) -> Callable:
         """Build the chunk step
         fn(sig [L, C], n_valid, ctl_carry, out_tail, w_tail, params,
            gain_lin) -> (payload, aux, out, ctl_carry', out_tail', w_tail').
@@ -165,16 +298,41 @@ class ChunkedStftEngine:
             pre-quantisation float tensor, left on the device for the rare
             clamped flush (ints saturate at full scale, so a clamp cannot
             be recovered from the bytes).
+        transport="wire": the pcm24 step (the same single launch of the
+            chunk-tail kernel), then the PCM_24 ints, sign-extended from
+            the kernel's bytes, are losslessly compressed on the device
+            (ops.wire.pack_device); payload is (words int32 [max_words],
+            used int32 0-d). The host reads `used` in its small readback,
+            fetches words[:used] and decodes with the native codec
+            (io.wirecodec) into the very payload pcm24 ships raw.
+
+        rice_out: the wire pack's rice mode for THIS step (None = the
+        module default WIRE_RICE_OUT; callers wanting the measured-link
+        policy pass resolve_rice_out()). The host decoder reads the mode
+        per block, so steps of either mode feed the same sinks.
 
         norm: "eps" y/(w + 1e-12), the streaming processors' convention;
         "floor8" y/max(w, 1e-8), the adaptive processor's.
         """
-        if transport not in ("f32", "pcm24"):
+        if transport not in ("f32", "pcm24", "wire"):
             raise ValueError(transport)
+        rice = WIRE_RICE_OUT if rice_out is None else bool(rice_out)
         if norm not in ("eps", "floor8"):
             raise ValueError(norm)
-        self.log_keys = tuple(getattr(controller, "LOG_KEYS", ()))
-        log_keys = self.log_keys
+        log_keys = tuple(getattr(controller, "LOG_KEYS", ()))
+        if self._log_keys_bound and self.log_keys != log_keys:
+            # the aux rows' layout follows self.log_keys; rebinding one
+            # engine to controllers with different log rows would
+            # silently misalign it: one engine per controller type
+            raise ValueError(
+                f"engine already bound to LOG_KEYS {self.log_keys}; "
+                f"controller wants {log_keys} — use a separate "
+                "ChunkedStftEngine per controller type")
+        self._log_keys_bound = True
+        self.log_keys = log_keys
+        self.transport = transport
+        tail_transport = "f32" if transport == "f32" else "pcm24"
+        C = self.channels
         n_fft, hop, F = self.n_fft, self.hop, self.frames_per_chunk
         dev = self.device
         win = torch.as_tensor(self.window, device=dev)
@@ -202,7 +360,7 @@ class ChunkedStftEngine:
             # possibly partial chunk the tail is complete here.
             out, peaks, pcm, ola_t, w_t = chunk_tail(
                 z, win, win2, n_valid, out_tail, w_tail, gain_lin,
-                norm=norm, transport=transport)
+                norm=norm, transport=tail_transport)
             rows = [levels] + [log[k] for k in log_keys]
             rows = [torch.nn.functional.pad(r.to(torch.float32), (0, W - F))
                     for r in rows]
@@ -214,7 +372,18 @@ class ChunkedStftEngine:
                 carries = (ctl_carry, out_tail, w_tail)
             if transport == "f32":
                 return (out, torch.stack(rows), None) + carries
-            return (pcm, torch.stack(rows + [peaks]), out) + carries
+            aux = torch.stack(rows + [peaks])
+            if transport == "wire":
+                # the kernel's own bytes, sign-extended: the pack sees
+                # exactly the ints the pcm24 transport ships
+                b = pcm.view(-1, 3)
+                v = (b[:, 0].to(torch.int32)
+                     | (b[:, 1].to(torch.int32) << 8)
+                     | (b[:, 2].view(torch.int8).to(torch.int32) << 16))
+                v = v.reshape(-1, C)
+                return (wire_ops.pack_device(v, v.shape[0], C, rice=rice),
+                        aux, out) + carries
+            return (pcm, aux, out) + carries
 
         return chunk_fn
 
@@ -223,7 +392,7 @@ class ChunkedStftEngine:
 # Host-side stream driver.
 # ---------------------------------------------------------------------------
 
-def _read_fn(source):
+def _read_fn(source, int_in: bool):
     """read(n) callable over an AudioFile reader or an ndarray."""
     if isinstance(source, np.ndarray):
         x = source if source.ndim == 2 else source[:, None]
@@ -234,7 +403,7 @@ def _read_fn(source):
             cur[0] += len(blk)
             return blk
         return read
-    return source.read
+    return source.read_int24 if int_in else source.read
 
 
 def _host(t) -> np.ndarray:
@@ -267,23 +436,131 @@ def _joined(pieces: list, empty_dtype) -> np.ndarray:
     return pieces[0] if len(pieces) == 1 else np.concatenate(pieces)
 
 
+class ChunkReadback:
+    """The device->host transfers of one dispatched chunk, in the three
+    stages of utils.pipeline.StagedPipeline.
+
+    On a card every copy is non-blocking into pinned memory of the
+    chunk's own (a pinned buffer lives as long as the host arrays made
+    from it, so the writer thread never reads one that is being
+    refilled), and the device tensors stay referenced here until the
+    hand-over. On a CPU device there is no pinned memory and no event:
+    the tensors are the host arrays. The choice follows the tensors'
+    device, never a caught error.
+
+    fetch: the tensors read back in S1 (payload and aux; for wire the aux
+    alone). stream: wire only, (words, used): `used` rides S1, and S2
+    fetches words[:used] once it is known."""
+
+    def __init__(self, fetch: list, stream=None):
+        self._fetch = list(fetch)
+        self._stream = stream
+        if stream is not None:
+            self._fetch.append(stream[1])
+        self._cuda = self._fetch[0].is_cuda
+        self._host: list = []
+        self._event = None
+        self.used_bytes = 0
+        if self._cuda:
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def _copy(self, t: torch.Tensor) -> torch.Tensor:
+        if not self._cuda:
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    def _mark(self) -> None:
+        if self._cuda:
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def _wait(self) -> None:
+        if self._cuda:
+            self._event.synchronize()
+
+    def block_until_ready(self) -> None:
+        """S1: wait for the chunk step (an event recorded behind it)."""
+        self._wait()
+
+    def copy_to_host_async(self) -> None:
+        """S1: start the readback of the fetch list."""
+        self._host = [self._copy(t) for t in self._fetch]
+        self._mark()
+
+    def start_stream(self) -> None:
+        """S2 (wire): read `used` from the small readback and start the
+        fetch of the used part of the stream."""
+        if self._stream is None:
+            return
+        self._wait()
+        used = int(self._host.pop())
+        self.used_bytes = used * 4
+        self._host.append(self._copy(self._stream[0][:used]))
+        self._mark()
+
+    def materialize(self) -> list:
+        """S3: wait the copies out; the host arrays in fetch order (for
+        wire the stream's int32 words last)."""
+        self._wait()
+        self._fetch, self._stream = [], None
+        return [h.numpy() for h in self._host]
+
+
+class _ProcessPrefetch:
+    """Prefetcher-shaped facade over a staging.StagedStream: items arrive
+    in chunk order, and each chunk's engine comes from the schedule the
+    runner computed."""
+
+    def __init__(self, stream, engines: list):
+        self._stream = stream
+        self._engines = engines
+        self._i = 0
+
+    def get(self):
+        item = self._stream.get()   # raises StopIteration / the error
+        e_i = self._engines[self._i]
+        self._i += 1
+        return item, e_i
+
+    def close(self):
+        self._stream.close()
+
+
 class StreamRunner:
     """Runs a controller over an audio stream with reference write semantics.
 
-    The caller supplies sinks, called in stream order on the calling
-    thread:
+    The caller supplies sinks, called in stream order from a background
+    worker thread (keep them thread-compatible: file and CSV writers are;
+    the closing flush after a final full chunk runs on the calling
+    thread, once the worker has stopped); a sink exception fails the run:
         on_frames(frame_idx0, starts, log)   per engine chunk (host arrays)
         on_audio(chunk)                      clamped output in file order:
                                              float [n, C] (f32) or PCM_24
-                                             bytes (pcm24)
+                                             bytes (pcm24, wire)
     """
 
     def __init__(self, engine: ChunkedStftEngine, controller, total: int,
-                 output_gain_db: float = 0.0, transport: str = "f32"):
+                 output_gain_db: float = 0.0, transport: str = "f32",
+                 wire_input: bool = True,
+                 wire_rice_out: bool | None = None):
         """transport="pcm24" quantises and packs PCM_24 bytes on the device;
         the per-flush clamp decision then uses device-computed per-hop-block
         peaks, and the (rare) clamped flush rescales the pre-quantisation
-        floats and re-encodes on the host: <= 1 LSB from the f32 path."""
+        floats and re-encodes on the host: <= 1 LSB from the f32 path.
+        transport="wire" additionally compresses the PCM_24 ints
+        losslessly on the device (see make_chunk_fn).
+
+        wire_input: compress the host->device input with the wire codec
+        (native C++ encode, unpack on the device) whenever the input chunk
+        is exactly PCM_24-representable: bit-identical to the float32
+        upload it replaces. Chunks that are not PCM_24-exact (float
+        sources) ship as float32.
+
+        wire_rice_out: the wire transport's output rice mode; None picks
+        by the measured link (resolve_rice_out)."""
         self.engine = engine
         self.controller = controller
         self.total = int(total)
@@ -291,10 +568,15 @@ class StreamRunner:
             if output_gain_db else 1.0
         self.plan = flush_plan(total, engine.n_fft, engine.hop)
         self.transport = transport
-        self.chunk_fn = engine.make_chunk_fn(controller, transport=transport)
-        # Ramp-up schedule (F/4, F/2, then F): kept from the reference so
-        # that a stream is cut into the same chunks, and so sums in the
-        # same order, on both packages.
+        if wire_rice_out is None and transport == "wire":
+            wire_rice_out = resolve_rice_out(engine.device)
+        self.wire_rice_out = wire_rice_out
+        self.chunk_fn = engine.make_chunk_fn(controller, transport=transport,
+                                             rice_out=wire_rice_out)
+        # Ramp-up schedule (F/4, F/2, then F): it fills the pipeline
+        # sooner, and it is kept from the reference so that a stream is cut
+        # into the same chunks, and so sums in the same order, on both
+        # packages.
         F_c = engine.frames_per_chunk
         self._by_F = {F_c: (engine, self.chunk_fn)}
         self._ramp = bool(self.plan.n_frames > 2 * F_c and F_c % 4 == 0
@@ -305,13 +587,17 @@ class StreamRunner:
                                       engine.channels, f,
                                       window=engine.window,
                                       device=engine.device)
-                self._by_F[f] = (e, e.make_chunk_fn(controller,
-                                                    transport=transport))
+                self._by_F[f] = (e, e.make_chunk_fn(
+                    controller, transport=transport,
+                    rice_out=wire_rice_out))
         self.ctl_params = controller.params()
         self.gain_f32 = torch.tensor(self.output_gain, dtype=torch.float32,
                                      device=engine.device)
         self.stats = {}
         self.audio_samples_written = 0
+        self.wire_input = wire_input
+        self.wire_stats = {"in_bytes": 0, "out_bytes": 0,
+                           "in_raw_chunks": 0}
 
     def _chunk_F(self, frame0: int) -> int:
         """Frame count of the chunk starting at absolute frame `frame0` (a
@@ -334,11 +620,16 @@ class StreamRunner:
         resume_state: a state dict previously returned by ckpt.load(); the
         caller must position its sinks at the offsets in
         resume_state["__meta__"]["scalars"] (audio_samples_written,
-        frames_consumed) before calling."""
+        frames_consumed) before calling.
+
+        The sinks (on_audio, on_frames, on_progress) are invoked in stream
+        order but from a background worker thread. A sink exception fails
+        the run."""
         t_run = time.perf_counter()
         eng, plan = self.engine, self.plan
-        hop, C = eng.hop, eng.channels
+        hop, C, F_c = eng.hop, eng.channels, eng.frames_per_chunk
         pad, n_frames = plan.pad, plan.n_frames
+        dev = eng.device
 
         if self.total <= 0 or n_frames <= 0:
             self.stats = dict(n_frames=0, c1_frames=0, c2_frames=0,
@@ -348,9 +639,12 @@ class StreamRunner:
 
         ctl_carry = self.controller.init_carry()
         out_tail, w_tail = eng.zero_tails()
-        pcm24 = self.transport == "pcm24"
+        wire = self.transport == "wire"
+        byte_payload = self.transport in ("pcm24", "wire")
         sink = SinkState(pad)
         self.audio_samples_written = 0
+        self.wire_stats = {"in_bytes": 0, "out_bytes": 0,
+                           "in_raw_chunks": 0}
         frame0 = 0
 
         if resume_state is not None:
@@ -360,14 +654,11 @@ class StreamRunner:
             sink.cut_i = int(sc["cut_i"])
             self.audio_samples_written = int(sc["audio_samples_written"])
             sink.states_count = resume_state["states_count"].copy()
-            leaves = [torch.as_tensor(resume_state[f"carry{i}"],
-                                      device=eng.device)
+            leaves = [torch.as_tensor(resume_state[f"carry{i}"], device=dev)
                       for i in range(int(sc["n_carry_leaves"]))]
             ctl_carry = _carry_like(ctl_carry, leaves)
-            out_tail = torch.as_tensor(resume_state["out_tail"],
-                                       device=eng.device)
-            w_tail = torch.as_tensor(resume_state["w_tail"],
-                                     device=eng.device)
+            out_tail = torch.as_tensor(resume_state["out_tail"], device=dev)
+            w_tail = torch.as_tensor(resume_state["w_tail"], device=dev)
             if resume_state["out_pend"].size:
                 sink.out_pend = [resume_state["out_pend"]]
             if resume_state["peak_pend"].size:
@@ -378,6 +669,12 @@ class StreamRunner:
                 # on the host from here on (_gather_floats takes both)
                 sink.float_refs = [(sink.out_base, len(fr), fr)]
 
+        # Float-free input: when the source reads losslessly as PCM_24
+        # ints and the wire codec ships the input, the whole host input
+        # path stays integer (no float conversion, no exactness check).
+        int_in = (self.wire_input and not isinstance(source, np.ndarray)
+                  and getattr(source, "int24_readable", False))
+
         # rolling input in absolute sample coordinates (the stream starts
         # at -pad); a resumed run seeks the source to its first chunk
         in_base = -pad + frame0 * hop
@@ -386,19 +683,41 @@ class StreamRunner:
                 source = source[in_base:]
             else:
                 source.seek(in_base)
-        reader = RollingReader(_read_fn(source), C, dtype=np.float32,
+        reader = RollingReader(_read_fn(source, int_in), C,
+                               dtype=np.int32 if int_in else np.float32,
                                left_pad=max(0, -in_base), base=in_base,
                                block=eng.emit_len)
 
+        def consume_host(ready, mat):
+            """Writer-thread half: decode the payload (the C++ wire decode
+            releases the interpreter lock) and route it via the shared
+            SinkState."""
+            c_frame0, c_nf, rb, c_out_dev, c_eng = ready
+            if wire:
+                from tomatis_tpu_torch.io import wirecodec
+                aux, words = mat
+                # decode_offload is set with the producer, before the
+                # first chunk is consumed
+                payload = (staging.decode_pcm24_offload
+                           if decode_offload else wirecodec.decode_pcm24)(
+                    words.view(np.uint8), c_eng.emit_full, C)
+                self.wire_stats["out_bytes"] += rb.used_bytes
+            else:
+                payload, aux = mat
+            sink.route(self, c_eng, c_frame0, c_nf, payload, aux,
+                       c_out_dev, on_frames, on_audio, byte_payload)
+
         def save_checkpoint():
             """The state before the dispatch of the chunk at frame0, as
-            host copies. The loop is single-threaded, so every earlier
-            chunk is already routed and drained."""
-            buf = _joined(sink.out_pend, np.uint8 if pcm24 else np.float32)
-            n_pend = len(buf) // (C * 3 if pcm24 else 1)
+            host copies. The caller has drained the pipeline and joined
+            the writer, so every earlier chunk is routed and written."""
+            buf = _joined(sink.out_pend,
+                          np.uint8 if byte_payload else np.float32)
+            n_pend = len(buf) // (C * 3 if byte_payload else 1)
             refs = (self._gather_floats(sink.float_refs, sink.out_base,
                                         sink.out_base + n_pend, C)
-                    if pcm24 and n_pend else np.zeros((0, C), np.float32))
+                    if byte_payload and n_pend
+                    else np.zeros((0, C), np.float32))
             leaves = [_host(leaf) for leaf in _carry_leaves(ctl_carry)]
             state = {f"carry{i}": leaf for i, leaf in enumerate(leaves)}
             state.update(out_tail=_host(out_tail), w_tail=_host(w_tail),
@@ -412,51 +731,192 @@ class StreamRunner:
                 frames_consumed=int(frame0))
             ckpt.maybe_save(state, force=True)
 
-        # host wall time per stage: runner set-up (here: carries, tails,
-        # resume and the reader; the caller adds the runner's
-        # construction), input assembly + upload, chunk step enqueue,
-        # readback + routing + sink writes (the readback waits for the
-        # device), and the final drain (stream tail and the last flush cut)
+        # Producer: the file read (a FLAC decode) and, with wire_input,
+        # the C++ wire encode of chunk k+1 run while chunk k is uploaded
+        # and dispatched. Exceptions surface on this thread at the next
+        # get. Writer: once this thread has waited a chunk's readback
+        # out, the host-only half (wire decode, CSV rows, flush-cut drain,
+        # file write with its FLAC encode) runs on the ordered worker, so
+        # on_frames/on_audio/on_progress run there. Jobs run strictly in
+        # order; the checkpoint and final-flush paths join the queue
+        # first, so everything they read is fully drained. (Writer first:
+        # a failed producer start then leaks only an idle daemon, not a
+        # spinning producer holding the input file.)
+        def produce(f0):
+            # chunk sizes must track the main loop exactly; _chunk_F is a
+            # pure function of the frame cursor, so both sides agree
+            while f0 < n_frames:
+                e_i = self._by_F[self._chunk_F(f0)][0]
+                sig = reader.window(-pad + f0 * hop, e_i.chunk_input_len)
+                item = stage_encode(sig, int_in, self.wire_input)
+                f0 += min(e_i.frames_per_chunk, n_frames - f0)
+                if f0 < n_frames:
+                    reader.advance(-pad + f0 * hop)
+                yield item, e_i
+
+        writer = OrderedWorker()
+        # Input staging: a separate PROCESS when the source is a
+        # wire-encodable file long enough for the worker's one-time spawn
+        # to amortise (> 8 chunks; it persists across runs of one parent
+        # process); the thread producer for arrays, the raw transports,
+        # short files and TOMATIS_PROCESS_STAGE=0.
+        src_path = getattr(source, "path", None)
+        prefetch = None
+        decode_offload = False
+        if (self.wire_input and src_path
+                and not isinstance(source, np.ndarray)
+                and n_frames - frame0 > 8 * F_c
+                and staging.process_staging_enabled()):
+            sched, e_list = [], []
+            f0s = frame0
+            while f0s < n_frames:
+                e_s = self._by_F[self._chunk_F(f0s)][0]
+                ws = -pad + f0s * hop
+                f0s += min(e_s.frames_per_chunk, n_frames - f0s)
+                sched.append((ws, e_s.chunk_input_len,
+                              (-pad + f0s * hop) if f0s < n_frames
+                              else None))
+                e_list.append(e_s)
+            try:
+                prefetch = _ProcessPrefetch(
+                    staging.stage_stream(src_path, int_in, C, in_base,
+                                         eng.emit_len, sched, WIRE_RICE_IN),
+                    e_list)
+                # the consume side's wire decode rides a worker process
+                # too (its spawn overlaps the first chunks; local decode
+                # on any trouble)
+                staging.ensure_rpc_worker()
+                decode_offload = True
+            except OSError:
+                prefetch = None   # worker spawn failed: thread fallback
+        producer = "process" if prefetch is not None else "thread"
+        if prefetch is None:
+            prefetch = Prefetcher(produce(frame0))
+
+        def next_staged():
+            item, e_i = prefetch.get()
+            return stage_to_device(item, e_i.chunk_input_len, C,
+                                   self.wire_stats, dev)
+
+        # Software pipeline, depth 3. Per iteration k:
+        #   dispatch chunk k                (async; input staged last iter)
+        #   S1 on chunk k-1: wait its compute, start the readback
+        #   S2 on chunk k-2: (wire) read `used`, fetch the stream
+        #   stage input k+1                 (producer wait + upload)
+        #   S3 on chunk k-3: wait the copies (long since done), hand the
+        #                    host half to the ordered writer thread
+        # The device executes in enqueue order on one stream, so chunk
+        # k's step is enqueued before chunk k+1's input unpack. Host wall
+        # time of this thread per stage: runner set-up (here: carries,
+        # tails, resume, reader, helper threads; the caller adds the
+        # runner's construction), input (producer wait + upload + unpack
+        # enqueue), dispatch (chunk step enqueue + S1/S2), consume (the
+        # S3 waits and the writer's back-pressure; decode, drain and
+        # write run on the writer thread and overlap the other stages),
+        # and the final drain (stream tail and the last flush cut).
         timings = {"runner_setup_s": 0.0, "input_host_s": 0.0,
                    "dispatch_compute_s": 0.0, "consume_s": 0.0,
                    "final_drain_s": 0.0}
+        detail = [] if os.environ.get("TOMATIS_TIMING_DETAIL") else None
         chunks = 0
+        staged = None
+
+        def pipe_start(ck):
+            ck["ready"][2].start_stream()
+
+        def pipe_finish(ck):
+            mat = ck["ready"][2].materialize()
+
+            def job(iv=ck["ready"], m=mat):
+                consume_host(iv, m)
+                if on_progress is not None:
+                    # frames fully processed and written so far
+                    on_progress(iv[0] + iv[1], n_frames)
+            writer.submit(job)
+
+        pipe = StagedPipeline(pipe_start, pipe_finish)
+
         last_full = False
         timings["runner_setup_s"] = time.perf_counter() - t_run
-        while frame0 < n_frames:
-            eng_i, fn_i = self._by_F[self._chunk_F(frame0)]
-            nf = min(eng_i.frames_per_chunk, n_frames - frame0)
-            last_full = nf == eng_i.frames_per_chunk
-            if ckpt is not None and chunks > 0 and chunks % ckpt.every == 0:
-                save_checkpoint()
+        try:
+            while frame0 < n_frames:
+                eng_i, fn_i = self._by_F[self._chunk_F(frame0)]
+                nf = min(eng_i.frames_per_chunk, n_frames - frame0)
+                last_full = nf == eng_i.frames_per_chunk
+                if ckpt is not None and chunks > 0 \
+                        and chunks % ckpt.every == 0:
+                    # checkpoint boundary: everything before this chunk
+                    # must be consumed and drained before its state is
+                    # captured, so the pipeline stalls here (checkpoints
+                    # are many chunks apart)
+                    _t = time.perf_counter()
+                    pipe.drain()
+                    writer.check(join=True)
+                    timings["consume_s"] += time.perf_counter() - _t
+                    save_checkpoint()
+                chunks += 1
+                _d = {} if detail is not None else None
+                if staged is None:
+                    _t = time.perf_counter()
+                    staged = next_staged()
+                    timings["input_host_s"] += time.perf_counter() - _t
+                    if _d is not None:
+                        _d["stage_first"] = time.perf_counter() - _t
 
-            t0 = time.perf_counter()
-            sig = reader.window(-pad + frame0 * hop, eng_i.chunk_input_len)
-            sig = torch.from_numpy(np.ascontiguousarray(sig)).to(eng.device)
-            t1 = time.perf_counter()
-            payload, aux, out_dev, ctl_carry, out_tail, w_tail = fn_i(
-                sig, nf, ctl_carry, out_tail, w_tail, self.ctl_params,
-                self.gain_f32)
-            t2 = time.perf_counter()
-            sink.route(self, eng_i, frame0, nf, _host(payload), _host(aux),
-                       out_dev, on_frames, on_audio, pcm24)
-            t3 = time.perf_counter()
-            timings["input_host_s"] += t1 - t0
-            timings["dispatch_compute_s"] += t2 - t1
-            timings["consume_s"] += t3 - t2
+                _t = time.perf_counter()
+                payload, aux, out_dev, ctl_carry, out_tail, w_tail = fn_i(
+                    staged, nf, ctl_carry, out_tail, w_tail,
+                    self.ctl_params, self.gain_f32)
+                rb = (ChunkReadback([aux], stream=payload) if wire
+                      else ChunkReadback([payload, aux]))
+                if _d is not None:
+                    _d["dispatch"] = time.perf_counter() - _t
+                pipe.push((frame0, nf, rb, out_dev, eng_i), rb)
+                frame0 += nf
 
-            frame0 += nf
-            chunks += 1
-            if frame0 < n_frames:
-                reader.advance(-pad + frame0 * hop)
-            if on_progress is not None:
-                on_progress(frame0, n_frames)
+                # promote older chunks one pipeline stage each (oldest
+                # first, capped at S2; S3 is the retire step below)
+                _p = time.perf_counter()
+                pipe.promote()
+                timings["dispatch_compute_s"] += time.perf_counter() - _t
+                if _d is not None:
+                    _d["promote"] = time.perf_counter() - _p
+
+                # stage the next chunk's input while the device works
+                staged = None
+                if frame0 < n_frames:
+                    _t = time.perf_counter()
+                    staged = next_staged()
+                    timings["input_host_s"] += time.perf_counter() - _t
+                    if _d is not None:
+                        _d["stage_next"] = time.perf_counter() - _t
+
+                # retire the chunk whose readback has had a full iteration
+                _t = time.perf_counter()
+                if pipe.retire():
+                    timings["consume_s"] += time.perf_counter() - _t
+                    if _d is not None:
+                        _d["retire"] = time.perf_counter() - _t
+
+                if detail is not None:
+                    detail.append(_d)
+            _t = time.perf_counter()
+            pipe.drain()
+            writer.check(join=True)
+            timings["consume_s"] += time.perf_counter() - _t
+        finally:
+            # stop a producer that is still blocked on a full queue (an
+            # exception above leaves un-got items) and shut the writer
+            # down; harmless after a normal exit where both are idle
+            prefetch.close()
+            writer.close()
         # if the last chunk was full, the stream's tail is still in the
         # carry (a checkpoint is always taken before a chunk's dispatch, so
         # a resumed run re-enters the loop and derives last_full again)
         t0 = time.perf_counter()
         if last_full:
-            sink.append_tail(self, eng, n_frames, out_tail, w_tail, pcm24)
+            sink.append_tail(self, eng, n_frames, out_tail, w_tail,
+                             byte_payload)
         sink.final_drain(self, on_audio)
         timings["final_drain_s"] = time.perf_counter() - t0
 
@@ -470,7 +930,12 @@ class StreamRunner:
             c2_ratio=sc_[2] / total_f if total_f else 0.0,
             chunks=chunks,
             timings={k: round(v, 4) for k, v in timings.items()},
+            wire=dict(self.wire_stats),
+            producer=producer,
         )
+        if detail is not None:
+            self.stats["chunk_timings"] = [
+                {k: round(v, 4) for k, v in d.items()} for d in detail]
         return self.stats
 
     def _drain(self, out_pend, peak_pend, float_refs, cut_i, out_base,
@@ -478,7 +943,7 @@ class StreamRunner:
         """Write out every flush cut whose samples are fully available.
         Mutates the pending lists in place; returns (cut_i, out_base)."""
         plan = self.plan
-        pcm24 = self.transport == "pcm24"
+        pcm24 = self.transport in ("pcm24", "wire")
         unit = self.engine.channels * 3 if pcm24 else 1
         hop = self.engine.hop
         while cut_i < len(plan.cuts):

@@ -88,6 +88,15 @@ class AudioFile:
             x = x[:, 0]
         return x
 
+    @property
+    def int24_readable(self) -> bool:
+        """True when the source can be read losslessly as int32 samples at
+        PCM_24 scale (the engine's wire input path skips floats then)."""
+        return bool(getattr(self._h, "int24_readable", False))
+
+    def read_int24(self, n_frames: int = -1) -> np.ndarray:
+        return self._h.read_int24(n_frames)
+
     def seek(self, frame: int) -> int:
         return self._h.seek(frame)
 

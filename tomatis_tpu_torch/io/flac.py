@@ -1,6 +1,5 @@
 """FLAC reader/writer over the native C++ codec (csrc/flac.cpp), a copy of
-tomatis_tpu/io/flac.py without ``read_int24`` (the wire-input path, not yet
-ported).
+tomatis_tpu/io/flac.py.
 
 Same float32 surface as io.wav: samples are normalized to [-1, 1) on read
 and quantized with round-half-even + clip on write (PCM_16 / PCM_24
@@ -91,6 +90,25 @@ class _NativeFlacReader:
         self._pos += got
         x = buf[:got * self.channels].astype(np.float32) / _scale(self.bits)
         return x.reshape(-1, self.channels)
+
+    @property
+    def int24_readable(self) -> bool:
+        return self.bits <= 24
+
+    def read_int24(self, n_frames: int = -1) -> np.ndarray:
+        """Read as int32 samples at PCM_24 scale (float = v / 2^23) —
+        exact for <=24-bit sources, skipping the float conversion."""
+        if n_frames < 0:
+            n_frames = max(0, self.frames - self._pos)
+        buf = np.empty(n_frames * self.channels, np.int32)
+        got = self._lib.tflac_read(
+            self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            n_frames)
+        self._pos += got
+        v = buf[:got * self.channels]
+        if self.bits != 24:
+            v = v << (24 - self.bits)
+        return v.reshape(-1, self.channels)
 
     def seek(self, frame: int) -> int:
         frame = max(0, min(frame, self.frames))

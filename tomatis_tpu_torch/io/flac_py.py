@@ -391,6 +391,16 @@ class PureFlacReader:
             return np.zeros((0, self.channels), np.int32)
         return np.concatenate(chunks, 0)
 
+    @property
+    def int24_readable(self) -> bool:
+        return self.bits <= 24
+
+    def read_int24(self, n_frames: int = -1) -> np.ndarray:
+        v = self.read_int_raw(n_frames)
+        if self.bits != 24:
+            v = v << (24 - self.bits)
+        return v
+
     def seek(self, frame: int) -> int:
         frame = max(0, min(frame, self.frames))
         if frame < self._pos:

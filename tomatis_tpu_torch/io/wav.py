@@ -1,5 +1,4 @@
-"""Pure-Python WAV (RIFF) reader/writer, a copy of tomatis_tpu/io/wav.py
-without the wire-input path (not yet ported).
+"""Pure-Python WAV (RIFF) reader/writer, a copy of tomatis_tpu/io/wav.py.
 
 Supports PCM 16/24/32-bit and IEEE float32, mono/stereo/N-channel,
 streaming reads (arbitrary frame ranges) and streaming writes with header
@@ -161,6 +160,30 @@ class WavReader:
         raw = raw[: got * self.info.bytes_per_frame]
         self._pos += got
         return _decode(raw, self.info.subtype, self.info.channels)
+
+    @property
+    def int24_readable(self) -> bool:
+        return self.info.subtype in ("PCM_16", "PCM_24")
+
+    def read_int24(self, n_frames: int = -1) -> np.ndarray:
+        """Read as int32 samples at PCM_24 scale (float = v / 2^23) —
+        exact for 16/24-bit sources, skipping the float conversion."""
+        if n_frames < 0:
+            n_frames = self.info.frames - self._pos
+        n_frames = max(0, min(n_frames, self.info.frames - self._pos))
+        raw = self._f.read(n_frames * self.info.bytes_per_frame)
+        got = len(raw) // self.info.bytes_per_frame
+        raw = raw[: got * self.info.bytes_per_frame]
+        self._pos += got
+        st = self.info.subtype
+        if st == "PCM_16":
+            v = np.frombuffer(raw, "<i2").astype(np.int32) << 8
+        elif st == "PCM_24":
+            from tomatis_tpu_torch.utils.pcm import i32_from_le24
+            v = i32_from_le24(np.frombuffer(raw, np.uint8))
+        else:
+            raise ValueError(f"int24 read unsupported for {st}")
+        return v.reshape(-1, self.info.channels)
 
     def close(self):
         self._f.close()

@@ -7,11 +7,14 @@ streaming loop (the reference writes the *whole* OLA stream including the
 half-window pre-pad and tail: output files are longer than the input by
 design; downstream comparators re-align by cross-correlation).
 
-The loop dispatches single-threaded and in order: one chunk step on the
-device (one launch of the fused chunk-tail kernel on a CUDA tensor), its
-readback, the peak and the file write, then the next chunk. The
-reference's prefetch thread, staged pipeline, ordered writer and int24
-input path are queued in ROADMAP.md with the wire transport.
+The loop is the stream engine's: a producer thread reads the file (as
+PCM_24 ints when no pre-gain multiplies them), the calling thread uploads
+and enqueues one chunk step (one launch of the fused chunk-tail kernel on
+a CUDA tensor) and moves the chunks through the depth-3 pipeline of
+utils/pipeline.py, and an ordered worker thread tracks the peak and
+writes the file, so the input's decode and the output's encode overlap
+each other and the device. A checkpointed run keeps the writes on the
+calling thread and stalls at snapshot boundaries.
 """
 from __future__ import annotations
 
@@ -24,13 +27,18 @@ import numpy as np
 import torch
 
 from tomatis_tpu_torch.engine.streaming import (ChunkedStftEngine,
-                                                _encode_pcm24, _host)
+                                                ChunkReadback, _encode_pcm24,
+                                                _host, resolve_transport,
+                                                stage_encode,
+                                                stage_to_device)
 from tomatis_tpu_torch.io import audio
 from tomatis_tpu_torch.models.controllers import StaticGainController
 from tomatis_tpu_torch.models.standard import (finalize_checkpointed_sink,
                                                open_checkpointed_sink)
 from tomatis_tpu_torch.ops.dsp import EPS
 from tomatis_tpu_torch.utils.device import resolve_device
+from tomatis_tpu_torch.utils.pipeline import (OrderedWorker, Prefetcher,
+                                              StagedPipeline)
 from tomatis_tpu_torch.utils.rolling import RollingReader
 
 
@@ -160,8 +168,10 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
     is the last frame's end; includes the pre-pad: reference behavior).
     Returns dict(peak_seen, out_path, n_frames, sr, transport, timings).
 
-    The transport follows the sink: PCM_24 packed on the device when it
-    takes raw bytes (every PCM_24 sink does), floats read back otherwise.
+    The transport follows the sink, through the engine's
+    resolve_transport("auto", ...): PCM_24 packed on the device when the
+    sink takes raw bytes (every PCM_24 sink does), floats read back
+    otherwise.
     peak_seen comes from the kernel's per-hop-block peaks (pcm24) or from
     the floats (f32).
 
@@ -171,7 +181,8 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
     same call resumes. Non-WAV outputs stage through a .part WAV.
 
     progress(frames_done, frames_total) is invoked per chunk in stream
-    order on the calling thread. A progress exception fails the run.
+    order, on the worker thread that writes the file (on the calling
+    thread in a checkpointed run). A progress exception fails the run.
     """
     dev = resolve_device(device)
     t_start = time.perf_counter()
@@ -202,8 +213,9 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
         fout, actual_out, ckpt, resume, stage_path = open_checkpointed_sink(
             out_path, sr, ch, config, checkpoint_path, checkpoint_every)
         try:
-            raw = fout.supports_raw
-            transport = "pcm24" if raw else "f32"
+            # "auto" on the port is pcm24 on a raw sink, f32 otherwise; the
+            # input ships uncompressed, as on every transport but wire
+            transport, raw = resolve_transport("auto", fout.supports_raw)
             engine = ChunkedStftEngine(n_fft, hop, ch, frames_per_chunk,
                                        device=dev)
             controller = StaticGainController(gain_bins).to(dev)
@@ -214,7 +226,12 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
             ctl_carry = controller.init_carry()
             out_tail, w_tail = engine.zero_tails()
             need = engine.chunk_input_len
-            scale = np.float32(pre_gain) if pre_gain != 1.0 else None
+            # float-free input when no pre-gain multiply is needed and the
+            # source reads losslessly as PCM_24 ints (mirrors the engine):
+            # the ints are uploaded and scaled on the device
+            int_in = pre_gain == 1.0 and fin.int24_readable
+            scale = (np.float32(pre_gain)
+                     if not int_in and pre_gain != 1.0 else None)
             peak_seen = 0.0
             lead, pos = pad_len, 0
             if resume is not None:
@@ -230,7 +247,9 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
                     fin.seek(pos - pad_len)
             # padded input stream in RollingReader coords (0 = first pad
             # zero)
-            reader = RollingReader(fin.read, ch, dtype=np.float32,
+            reader = RollingReader(fin.read_int24 if int_in else fin.read,
+                                   ch, dtype=np.int32 if int_in
+                                   else np.float32,
                                    scale=scale, left_pad=lead, base=pos,
                                    block=engine.emit_len)
 
@@ -242,50 +261,113 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
                 else:
                     fout.write(piece)
 
+            def consume_host(ready, mat):
+                """Worker-thread half: peak track + file write."""
+                _f0, c_nf, _rb = ready
+                emit_n = c_nf * hop + (engine.tail_len
+                                       if c_nf < frames_per_chunk else 0)
+                payload, aux = mat
+                if raw:
+                    piece = payload[:emit_n * ch * 3]
+                    pk = (float(np.max(aux[-1][:emit_n // hop]))
+                          if emit_n else 0.0)
+                else:
+                    piece = payload[:emit_n]
+                    pk = float(np.max(np.abs(piece))) if emit_n else 0.0
+                write_piece(piece, pk)
+
+            def produce(f0):
+                for f in range(f0, F, frames_per_chunk):
+                    yield stage_encode(reader.window(f * hop, need), int_in,
+                                       wire_input=False)
+                    if f + frames_per_chunk < F:
+                        reader.advance((f + frames_per_chunk) * hop)
+
+            # host wall time of the calling thread per stage: input
+            # (producer wait + upload), dispatch (chunk step enqueue and
+            # the pipeline's S1/S2), consume (the S3 waits and the
+            # writer's back-pressure; with a checkpoint the writes
+            # themselves)
             timings = {"input_host_s": 0.0, "dispatch_compute_s": 0.0,
                        "consume_s": 0.0}
             chunks = 0
-            for f0 in range(f0_start, F, frames_per_chunk):
-                nf = min(frames_per_chunk, F - f0)
-                if ckpt is not None and f0 > f0_start \
-                        and ((f0 - f0_start) // frames_per_chunk) \
-                        % ckpt.every == 0:
-                    # every chunk before f0 is written (the loop is in
-                    # order); resuming at f0 needs the tails as they are
-                    # NOW, before this chunk's dispatch
-                    ckpt.maybe_save(dict(
-                        out_tail=_host(out_tail), w_tail=_host(w_tail),
-                        __scalars__=dict(
-                            next_f0=f0, peak_seen=peak_seen,
-                            audio_samples_written=f0 * hop)), force=True)
-                t0 = time.perf_counter()
-                sig = torch.from_numpy(np.ascontiguousarray(
-                    reader.window(f0 * hop, need))).to(dev)
-                t1 = time.perf_counter()
-                payload, aux, _out, ctl_carry, out_tail, w_tail = chunk_fn(
-                    sig, nf, ctl_carry, out_tail, w_tail, ctl_params,
-                    gain_one)
-                t2 = time.perf_counter()
-                emit_n = nf * hop + (engine.tail_len
-                                     if nf < frames_per_chunk else 0)
-                if raw:
-                    piece = _host(payload[:emit_n * ch * 3])
-                    pk = (float(aux[-1][:emit_n // hop].max())
-                          if emit_n else 0.0)
+            # file read prefetch on a producer thread; depth-3 staged
+            # chunk pipeline (the engine's); peak + write on an ordered
+            # worker (`progress` then runs on the worker thread).
+            # Checkpointed runs keep the write side synchronous and stall
+            # at snapshot boundaries: maybe_save must observe every prior
+            # chunk on disk.
+            writer_w = OrderedWorker() if ckpt is None else None
+            prefetch = Prefetcher(produce(f0_start))
+
+            def next_staged():
+                return stage_to_device(prefetch.get(), need, ch, None, dev)
+
+            def pipe_finish(ck):
+                mat = ck["ready"][2].materialize()
+
+                def job(iv=ck["ready"], m=mat):
+                    consume_host(iv, m)
+                    if progress is not None:
+                        # frames COMPLETED (start + count), so the last
+                        # call reports F/F like the standard processor
+                        progress(iv[0] + iv[1], F)
+                if writer_w is not None:
+                    writer_w.submit(job)
                 else:
-                    piece = _host(payload[:emit_n])
-                    pk = float(np.max(np.abs(piece))) if emit_n else 0.0
-                write_piece(piece, pk)
-                timings["input_host_s"] += t1 - t0
-                timings["dispatch_compute_s"] += t2 - t1
-                timings["consume_s"] += time.perf_counter() - t2
-                chunks += 1
-                if f0 + frames_per_chunk < F:
-                    reader.advance((f0 + frames_per_chunk) * hop)
-                if progress is not None:
-                    # frames COMPLETED (start + count), so the last call
-                    # reports F/F like the standard processor
-                    progress(f0 + nf, F)
+                    job()
+
+            pipe = StagedPipeline(lambda ck: None, pipe_finish)
+            try:
+                staged = None
+                for f0 in range(f0_start, F, frames_per_chunk):
+                    nf = min(frames_per_chunk, F - f0)
+                    if ckpt is not None and f0 > f0_start \
+                            and ((f0 - f0_start) // frames_per_chunk) \
+                            % ckpt.every == 0:
+                        # checkpoint boundary: every chunk before f0 must
+                        # be written before the pre-dispatch tails are
+                        # persisted (resuming at f0 needs the tails as
+                        # they are NOW)
+                        t0 = time.perf_counter()
+                        pipe.drain()
+                        timings["consume_s"] += time.perf_counter() - t0
+                        ckpt.maybe_save(dict(
+                            out_tail=_host(out_tail), w_tail=_host(w_tail),
+                            __scalars__=dict(
+                                next_f0=f0, peak_seen=peak_seen,
+                                audio_samples_written=f0 * hop)),
+                            force=True)
+                    t0 = time.perf_counter()
+                    if staged is None:
+                        staged = next_staged()
+                    t1 = time.perf_counter()
+                    payload, aux, _out, ctl_carry, out_tail, w_tail = \
+                        chunk_fn(staged, nf, ctl_carry, out_tail, w_tail,
+                                 ctl_params, gain_one)
+                    rb = ChunkReadback([payload, aux])
+                    pipe.push((f0, nf, rb), rb)
+                    pipe.promote()
+                    t2 = time.perf_counter()
+                    # stage the next chunk's input while the device works
+                    staged = None
+                    if f0 + frames_per_chunk < F:
+                        staged = next_staged()
+                    t3 = time.perf_counter()
+                    pipe.retire()
+                    timings["input_host_s"] += (t1 - t0) + (t3 - t2)
+                    timings["dispatch_compute_s"] += t2 - t1
+                    timings["consume_s"] += time.perf_counter() - t3
+                    chunks += 1
+                t0 = time.perf_counter()
+                pipe.drain()
+                if writer_w is not None:
+                    writer_w.check(join=True)
+                timings["consume_s"] += time.perf_counter() - t0
+            finally:
+                prefetch.close()
+                if writer_w is not None:
+                    writer_w.close()
 
             if F > 0 and F % frames_per_chunk == 0:
                 # after a final FULL chunk the carry still holds the

@@ -2,13 +2,14 @@
 
 Each ``csrc/<name>.cu`` holds a CUDA kernel behind a plain C interface,
 compiled with nvcc for sm_90a; each ``csrc/<name>.cpp`` is host C++ (the
-FLAC codec), compiled with the host C++ compiler (g++, else nvcc in its
-place). Either goes into ``native/build/lib<name>.so`` at first
+FLAC codec, the wire codec), compiled with the host C++ compiler (g++,
+else nvcc in its place). Either goes into ``native/build/lib<name>.so`` at first
 use (a source-mtime check triggers a rebuild) and is loaded with ctypes,
 the same route as the reference's g++ builds (tomatis_tpu/native/build.py).
 No PyTorch headers are compiled, so a build takes seconds. A failed build
-raises RuntimeError: a kernel has no fall-back; the codec's callers decide
-(io/flac.py reads with the pure decoder, the processors write WAV).
+raises RuntimeError: a kernel has no fall-back; a codec's callers decide
+(io/flac.py reads with the pure decoder, the processors write WAV,
+io/wirecodec.py takes its numpy implementation).
 """
 from __future__ import annotations
 
