@@ -92,7 +92,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
     flight;
 17. convert: FLAC -> WAV -> FLAC through the int24 copy keeps every
     sample;
-18. prints the card line, the kernels JSON line and, last, the result
+18. process-batch: (a) the batched chunk tail (a lane axis, one launch
+    for every lane) against chunk_tail_batched_plain bit for bit in every
+    output at B = 1, 4, 8 on the production shape [B, 1024, 2, 4096] with
+    mixed n_valid (full, partial, 0), at the C = 1 and scalar-loop shapes,
+    and B = 1 against chunk_tail_cuda; CUDA-event times at B = 1, 4, 8
+    beside the byte bound, a device copy of the same bytes and B
+    single-file launches in a row. (b) eight FLAC lanes of 90-150 s cut
+    from the programme through process_batch on the card, B = 8 and B = 4:
+    each lane's file and state CSV equal to standard.process on that file
+    with TOMATIS_NO_RAMP=1 byte for byte, one batched launch per batch
+    chunk and no single-file one; a corrupt lane fails alone; walls,
+    aggregate realtime factor, LAST_TIMINGS, peak device memory, the
+    single-file walls' sum, and the lanes' codecs alone on one thread
+    each, side by side;
+19. prints the card line, the kernels JSON line and, last, the result
     line {"ok": true, "device": {...}}. Each path is driven with the
     launch counts set to 0 just before it and read just after:
     `launches_by_path` holds those readings, `launches` their sum.
@@ -190,13 +204,15 @@ def ptxas_lines(text: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             name = m.group(1)
-            t = re.search(r"chunk_tail_kernelILi(\d)ELi(\d)ELi(\d)E", name)
+            t = re.search(r"chunk_tail_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)E",
+                          name)
             if t:
                 mode = ("overlap_add", "f32", "pcm24")[int(t.group(1))]
                 norm = ("eps", "floor8")[int(t.group(2))]
                 c = {"0": "any C, scalar loop"}.get(t.group(3),
                                                     f"C={t.group(3)}")
-                name = f"chunk_tail_kernel<{mode}, {norm}, {c}>"
+                lanes = ", lanes" if t.group(4) == "1" else ""
+                name = f"chunk_tail_kernel<{mode}, {norm}, {c}{lanes}>"
         elif "spill" in ln:
             frame = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -477,23 +493,44 @@ def reset_counts(cuda_ola):
     cuda_ola.overlap_add_cuda.launches = 0
     cuda_ola.chunk_tail_cuda.launches = 0
     cuda_ola.chunk_tail_cuda.by_variant.clear()
+    cuda_ola.chunk_tail_batched_cuda.launches = 0
+    cuda_ola.chunk_tail_batched_cuda.by_variant.clear()
+
+
+def counts_of(cuda_ola) -> dict:
+    return {"chunk_tail": cuda_ola.chunk_tail_cuda.launches,
+            "overlap_add": cuda_ola.overlap_add_cuda.launches,
+            "chunk_tail_batched": cuda_ola.chunk_tail_batched_cuda.launches}
 
 
 def read_counts(cuda_ola, chunks: int, what: str, variant=None) -> dict:
-    """The launch counts just after a path was driven; fails unless it
-    made one fused chunk-tail launch per chunk and no standalone
-    overlap-add launch, and (variant given) every launch was that
-    (norm, transport, channels) variant of the kernel."""
-    n_tail = cuda_ola.chunk_tail_cuda.launches
-    n_ola = cuda_ola.overlap_add_cuda.launches
-    if n_tail == 0 or n_tail != chunks or n_ola != 0:
-        fail(f"{what}: {n_tail} chunk-tail and {n_ola} overlap-add "
-             f"launches over {chunks} chunks (expected one chunk-tail "
-             f"launch per chunk and no overlap-add)")
+    """The launch counts just after a single-file path was driven; fails
+    unless it made one fused chunk-tail launch per chunk, no standalone
+    overlap-add and no batched launch, and (variant given) every launch
+    was that (norm, transport, channels) variant of the kernel."""
+    c = counts_of(cuda_ola)
+    if c["chunk_tail"] == 0 or c["chunk_tail"] != chunks \
+            or c["overlap_add"] != 0 or c["chunk_tail_batched"] != 0:
+        fail(f"{what}: launches {c} over {chunks} chunks (expected one "
+             f"chunk-tail launch per chunk and nothing else)")
     by = dict(cuda_ola.chunk_tail_cuda.by_variant)
     if variant is not None and by != {variant: chunks}:
         fail(f"{what}: chunk-tail variants {by}, expected only {variant}")
-    return {"chunk_tail": n_tail, "overlap_add": n_ola}
+    return c
+
+
+def read_batch_counts(cuda_ola, chunks: int, what: str) -> dict:
+    """The launch counts just after a batch was driven: one batched
+    launch per batch chunk, every one ("eps", "pcm24", 2), and no
+    single-file launch."""
+    c = counts_of(cuda_ola)
+    by = dict(cuda_ola.chunk_tail_batched_cuda.by_variant)
+    if c != {"chunk_tail": 0, "overlap_add": 0,
+             "chunk_tail_batched": chunks} or chunks == 0 \
+            or by != {("eps", "pcm24", 2): chunks}:
+        fail(f"{what}: launches {c}, variants {by} over {chunks} batch "
+             f"chunks (expected one batched launch per chunk only)")
+    return c
 
 
 def pcm_of(audio, path) -> np.ndarray:
@@ -1282,6 +1319,242 @@ def wire_and_thread_paths(torch, cuda_ola, audio, standard, eq, x, ip, op,
     return launches
 
 
+def batched_tail_inputs(torch, gen, B, F, C, n_fft, hop, n_valid) -> dict:
+    """Batched chunk-tail inputs on the card: B lanes of tail_inputs'
+    kind, n_valid an int32 [B] tensor; windows and gain shared."""
+    a = tail_inputs(torch, gen, F, C, n_fft, hop)
+    tail = n_fft - hop
+    return dict(
+        a, z=0.05 * torch.randn((B, F, C, n_fft), generator=gen,
+                                device="cuda"),
+        out_tail=0.05 * torch.randn((B, tail, C), generator=gen,
+                                    device="cuda"),
+        w_tail=torch.rand((B, tail), generator=gen, device="cuda"),
+        n_valid=torch.tensor(n_valid, dtype=torch.int32, device="cuda"))
+
+
+def batched_tail_bytes(B, F, C, n_fft, hop, transport) -> int:
+    """Bytes the batched chunk tail must move: each lane's frames, tails
+    and outputs (tail_bytes less the shared windows and gain), the shared
+    inputs once, and each lane's n_valid."""
+    shared = 4 * 2 * n_fft + (4 if transport == "pcm24" else 0)
+    return B * (tail_bytes(F, C, n_fft, hop, transport) - shared) \
+        + shared + 4 * B
+
+
+def check_batched_tail(torch, cuda_ola):
+    """Phase 18 (a): the batched kernel vs chunk_tail_batched_plain, bit for
+    bit in every output; B = 1 vs chunk_tail_cuda; times at B = 1, 4, 8."""
+    names = ("out", "peaks", "pcm", "ola_carry", "w_carry")
+
+    def same(got, ref, what):
+        for name, g, r in zip(names, got, ref):
+            if (g is None) != (r is None):
+                fail(f"batched chunk tail {name} presence differs at {what}")
+            if r is not None and (g.shape != r.shape or g.dtype != r.dtype
+                                  or not torch.equal(g, r)):
+                fail(f"batched chunk tail {name} differs at {what}")
+
+    cases = [  # B, F, C, n_fft, hop, n_valid per lane, norm
+        (1, 1024, 2, 4096, 2048, [1024], "eps"),
+        (4, 1024, 2, 4096, 2048, [1024, 0, 700, 1024], "eps"),
+        (8, 1024, 2, 4096, 2048, [1024, 0, 700, 1024, 1, 1024, 512, 0],
+         "eps"),
+        (3, 1024, 1, 4096, 2048, [1024, 267, 0], "floor8"),   # C=1
+        (3, 37, 2, 300, 150, [30, 0, 37], "floor8"),   # hop % 4: scalar loop
+        (3, 16, 3, 512, 256, [16, 0, 9], "eps"),       # C=3: scalar loop
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for B, F, C, n_fft, hop, n_valid, norm in cases:
+        a = batched_tail_inputs(torch, gen, B, F, C, n_fft, hop, n_valid)
+        for transport in ("f32", "pcm24"):
+            got = cuda_ola.chunk_tail_batched_cuda(norm=norm,
+                                                   transport=transport, **a)
+            ref = cuda_ola.chunk_tail_batched_plain(norm=norm,
+                                                    transport=transport, **a)
+            torch.cuda.synchronize()
+            same(got, ref, (B, F, C, n_fft, hop, n_valid, norm, transport))
+        log(f"batched chunk tail B={B} {(F, C, n_fft, hop)} n_valid "
+            f"{n_valid} {norm}: f32 and pcm24 bit-exact in every output")
+    for nv in (1024, 700):
+        a = batched_tail_inputs(torch, gen, 1, 1024, 2, 4096, 2048, [nv])
+        for transport in ("f32", "pcm24"):
+            got = cuda_ola.chunk_tail_batched_cuda(transport=transport, **a)
+            one = cuda_ola.chunk_tail_cuda(
+                a["z"][0], a["win"], a["win2"], nv, a["out_tail"][0],
+                a["w_tail"][0], a["gain_lin"], transport=transport)
+            torch.cuda.synchronize()
+            same([None if g is None else g[0] for g in got], one,
+                 ("B=1 vs chunk_tail_cuda", nv, transport))
+    log("batched chunk tail B=1 equals chunk_tail_cuda bit for bit "
+        "(n_valid 1024 and 700, f32 and pcm24)")
+
+    timed = {}
+    F, C, n_fft, hop = 1024, 2, 4096, 2048
+    for B in (1, 4, 8):
+        a = batched_tail_inputs(torch, gen, B, F, C, n_fft, hop, [F] * B)
+        lanes = [dict(z=a["z"][b], win=a["win"], win2=a["win2"], n_valid=F,
+                      out_tail=a["out_tail"][b], w_tail=a["w_tail"][b],
+                      gain_lin=a["gain_lin"]) for b in range(B)]
+
+        def singles():
+            for kw in lanes:
+                cuda_ola.chunk_tail_cuda(transport="pcm24", **kw)
+        plain_ms, singles_ms, ms = time_turns(torch, [
+            lambda: cuda_ola.chunk_tail_batched_plain(transport="pcm24", **a),
+            singles,
+            lambda: cuda_ola.chunk_tail_batched_cuda(transport="pcm24",
+                                                     **a)])
+        nbytes = batched_tail_bytes(B, F, C, n_fft, hop, "pcm24")
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        timed[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        log(f"batched chunk tail B={B} {(F, C, n_fft, hop)} pcm24: kernel "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
+            f"3.35 TB/s, {100 * bound_ms / ms:.0f}% of it; a copy moving as "
+            f"many bytes {copy_ms(torch, nbytes):.4f} ms); {B} single-file "
+            f"launches in a row {singles_ms:.4f} ms; "
+            f"chunk_tail_batched_plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=0.0, library_ms=None, **timed[8])
+
+
+def lanes_codecs_alone(audio, ins, outs, tmp) -> tuple:
+    """This script's own timing of the batch's host codecs alone, one
+    thread per lane, all lanes side by side: decoding every input, and
+    encoding every output from its PCM_24 bytes in 5 s pieces. Returns
+    (decode_s, encode_s), each the wall of all lanes together."""
+    from tomatis_tpu_torch.utils.pcm import le24_from_i32
+
+    def decode(path):
+        with audio.AudioFile(path, "r") as f:
+            while len(f.read(1024 * 2048)):
+                pass
+
+    raws = []
+    for path in outs:
+        with audio.AudioFile(path, "r") as f:
+            raws.append((f.samplerate, f.channels,
+                         le24_from_i32(f.read_int24().reshape(-1))))
+
+    def encode(i):
+        sr, ch, raw = raws[i]
+        piece = 5 * sr * ch * 3
+        with audio.AudioFile(os.path.join(tmp, f"alone{i}.flac"), "w",
+                             samplerate=sr, channels=ch,
+                             subtype="PCM_24") as f:
+            for k in range(0, len(raw), piece):
+                f.write_raw(raw[k:k + piece])
+
+    with concurrent.futures.ThreadPoolExecutor(len(ins)) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(decode, ins))
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        list(pool.map(encode, range(len(outs))))
+        encode_s = time.perf_counter() - t0
+    return decode_s, encode_s
+
+
+def batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
+    """Phase 18 (b): eight FLAC lanes through process_batch on the card,
+    B = 8 and B = 4, each lane against its single-file run."""
+    from tomatis_tpu_torch.parallel import batch
+    p = standard.StandardParams()
+    seconds = [90, 150, 105, 135, 120, 97, 142, 113]
+    ins = []
+    for i, sec in enumerate(seconds):
+        n = min(int(sec * SR), len(x))
+        off = (i * 37 * SR) % max(1, len(x) - n + 1)
+        ins.append((os.path.join(tmp, f"lane{i}.flac"), x[off:off + n]))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(ins)) as pool:
+        list(pool.map(lambda a: audio.write(a[0], a[1], SR,
+                                            subtype="PCM_24"), ins))
+    ins = [ip for ip, _ in ins]
+    log(f"batch lanes: {len(ins)} FLACs of {seconds} s written in "
+        f"{time.perf_counter() - t0:.3f} s (one thread each)")
+
+    # the single-file runs, each with the ramp off as the batch has it
+    refs, walls = [], []
+    os.environ["TOMATIS_NO_RAMP"] = "1"
+    try:
+        for i, ip in enumerate(ins):
+            ro = os.path.join(tmp, f"single{i}.flac")
+            rc = os.path.join(tmp, f"single{i}.csv")
+            st = standard.process(ip, ro, p, state_csv_path=rc,
+                                  device="cuda")
+            refs.append((ro, rc, st))
+            walls.append(st["wall_seconds"])
+    finally:
+        del os.environ["TOMATIS_NO_RAMP"]
+
+    launches = {}
+    runs = {}
+    for name, idx in (("batch_b8", list(range(8))), ("batch_b4", [0, 1, 2, 3]),
+                      ("batch_corrupt", [0, 1, 2, 3])):
+        d = os.path.join(tmp, name)
+        os.makedirs(d, exist_ok=True)
+        lane_in = [ins[i] for i in idx]
+        if name == "batch_corrupt":
+            # lane 1 is a FLAC whose STREAMINFO is garbage
+            bad = os.path.join(tmp, "corrupt.flac")
+            with open(bad, "wb") as f:
+                f.write(b"fLaC" + bytes(range(256)) * 64)
+            lane_in[1] = bad
+        jobs = [(ip, os.path.join(d, f"out{j}.flac"))
+                for j, ip in enumerate(lane_in)]
+        csvs = [os.path.join(d, f"st{j}.csv") for j in range(len(jobs))]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(cuda_ola)
+        t0 = time.perf_counter()
+        stats = batch.process_batch(jobs, p, state_csv_paths=csvs,
+                                    device="cuda")
+        wall = time.perf_counter() - t0
+        lt = dict(batch.LAST_TIMINGS)
+        ok = [j for j in range(len(jobs))
+              if not (name == "batch_corrupt" and j == 1)]
+        want_chunks = -(-max(stats[j]["n_frames"] for j in ok) // 1024)
+        if lt["chunks"] != want_chunks:
+            fail(f"{name}: {lt['chunks']} batch chunks, expected "
+                 f"{want_chunks}")
+        launches[name] = read_batch_counts(cuda_ola, lt["chunks"], name)
+        peak = torch.cuda.max_memory_allocated()
+        for j, lane in enumerate(idx):
+            if j not in ok:
+                if stats[j]["failed"] is None:
+                    fail(f"{name}: the corrupt lane did not fail")
+                continue
+            ro, rc, st = refs[lane]
+            if stats[j]["failed"] is not None:
+                fail(f"{name}: lane {j} failed: {stats[j]['failed']}")
+            if not files_equal(jobs[j][1], ro) or not files_equal(csvs[j],
+                                                                  rc):
+                fail(f"{name}: lane {j}'s file or state CSV differs from "
+                     f"its single-file run's")
+        audio_s = sum(stats[j]["n_frames"] * p.hop / SR for j in ok)
+        runs[name] = (wall, jobs, ok)
+        log(f"{name}: {len(jobs)} lanes ({len(ok)} good), {lt['chunks']} "
+            f"batch chunks, {launches[name]['chunk_tail_batched']} batched "
+            f"launches and no single-file one; every good lane's FLAC and "
+            f"state CSV equal its single-file run's byte for byte"
+            + (f"; the corrupt lane failed alone: "
+               f"{stats[1]['failed'][:60]!r}" if name == "batch_corrupt"
+               else "")
+            + f"; wall {wall:.3f} s, aggregate realtime factor "
+            f"{audio_s / wall:.2f}x, LAST_TIMINGS {lt}, peak device memory "
+            f"{peak / 1e9:.3f} GB")
+    wall8, jobs8, _ = runs["batch_b8"]
+    dec_s, enc_s = lanes_codecs_alone(audio, ins, [o for _, o in jobs8], tmp)
+    log(f"batch against single files: B=8 wall {wall8:.3f} s, B=4 wall "
+        f"{runs['batch_b4'][0]:.3f} s; the eight single-file walls "
+        f"{[round(w, 3) for w in walls]} s, sum {sum(walls):.3f} s (first "
+        f"four {sum(walls[:4]):.3f} s), longest {max(walls):.3f} s; alone, "
+        f"one thread per lane side by side: decoding the eight inputs "
+        f"{dec_s:.3f} s, encoding the eight outputs {enc_s:.3f} s; "
+        f"{os.cpu_count()} host cores")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1317,9 +1590,9 @@ def main() -> int:
                 fail(f"{src} did not build: {e}")
     log(f"build: {time.perf_counter() - t0:.1f} s (csrc/ola.cu with nvcc, "
         f"csrc/flac.cpp and csrc/wire.cpp with the host C++ compiler, all "
-        f"started together; compiled in "
-        f"this run: {sorted(BUILD_LOG)}, a library newer than its source is "
-        f"kept)")
+        f"started together; compiled in this run: {sorted(BUILD_LOG)}; a "
+        f"library is kept only when its name's hash of the compile commands "
+        f"and the host matches and it is newer than its source)")
     for src, text in BUILD_LOG.items():
         for ln in ptxas_lines(text):
             log(f"ptxas {src}: {ln}")
@@ -1588,17 +1861,25 @@ def main() -> int:
     launches.update(wire_and_thread_paths(
         torch, cuda_ola, audio, standard, eq, x, ip, op, cp, stream_alone_s,
         tmp))
+
+    # -- 18. process-batch ---------------------------------------------------
+    batched = check_batched_tail(torch, cuda_ola)
+    launches.update(batch_path(torch, cuda_ola, audio, standard, x, tmp))
     tmp_dir.cleanup()
 
-    # -- 18. result ----------------------------------------------------------
+    # -- 19. result ----------------------------------------------------------
+    replaces = {"chunk_tail_batched": "tomatis_tpu/ops/pallas_ola.py:75 "
+                "under jax.vmap (tomatis_tpu/parallel/batch.py:272)"}
     kernels = [dict(name=name, route="cuda",
                     source="tomatis_tpu_torch/csrc/ola.cu",
-                    replaces="tomatis_tpu/ops/pallas_ola.py:75",
+                    replaces=replaces.get(
+                        name, "tomatis_tpu/ops/pallas_ola.py:75"),
                     launches=sum(c[name] for c in launches.values()),
                     launches_by_path={k: c[name]
                                       for k, c in launches.items()},
                     bound_by="bytes", **res)
-               for name, res in (("overlap_add", ola), ("chunk_tail", tail))]
+               for name, res in (("overlap_add", ola), ("chunk_tail", tail),
+                                 ("chunk_tail_batched", batched))]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,11 @@ divide, PCM_24 pack) of the port's chunk step.
 - A Python emulation of the CUDA kernel's index math (tiles, 4-sample lane
   groups, frame bounds, interleaved stores, PCM byte offsets, per-tile
   peaks) against chunk_tail_plain, bit for bit.
-- The kernel itself against chunk_tail_plain, where a card exists.
+- The batched chunk tail (a lane axis): chunk_tail_batched_plain against
+  chunk_tail_plain lane by lane with the freeze rule, and an emulation of
+  the batched kernel's lane offsets on flat buffers, bit for bit.
+The kernels themselves run against their plain versions in the jax-free
+tests/test_torch_cuda_kernels.py, where a card exists.
 """
 import struct
 
@@ -200,14 +204,15 @@ def _pack4(u):
 
 
 def _emulate_kernel(z, win, win2, n_valid, out_tail, w_tail, gain, norm,
-                    transport, threads):
+                    transport, threads, freeze=False):
     """csrc/ola.cu's chunk_tail_kernel in Python, on flat float32 buffers.
 
     Block t owns hop tile t; thread tid walks the tile's groups
     s0 = V*tid, V*(tid + threads), ... of V samples (V = 4 when
     hop % 4 == 0 and C <= 2, else the scalar loop, V = 1); frames t-i for
-    i in [max(0, t-F+1), min(K-1, t)]. Counts the writes of every output
-    element, which must be exactly one."""
+    i in [max(0, t-F+1), min(K-1, t)]. freeze: the carries take the input
+    tails (the batched kernel's lane with n_valid == 0). Counts the writes
+    of every output element, which must be exactly one."""
     f32 = np.float32
     F_, C, n_fft = z.shape
     tail = w_tail.shape[0]
@@ -247,10 +252,11 @@ def _emulate_kernel(z, win, win2, n_valid, out_tail, w_tail, gain, norm,
                         acc[e % C, e // C] += otf[n0 * C + e]
                 if n0 >= Fh:
                     r = n0 - Fh
-                    w_c[r:r + V] = w
+                    w_c[r:r + V] = w_tail[r:r + V] if freeze else w
                     n_wc[r:r + V] += 1
                     for e in range(V * C):
-                        ola_c[r * C + e] = acc[e % C, e // C]
+                        ola_c[r * C + e] = (otf[r * C + e] if freeze
+                                            else acc[e % C, e // C])
                         n_oc[r * C + e] += 1
                 if norm == "eps":
                     x = acc / (w + f32(EPS))
@@ -317,7 +323,119 @@ def test_kernel_index_math_emulation(F_, C, n_fft, hop, norm, transport):
             np.testing.assert_array_equal(g.view(np.uint8), r.view(np.uint8))
 
 
-# -- the wrapper's contract on the CPU, and the kernel on a card ------------
+# -- the batched chunk tail ---------------------------------------------------
+
+def _batched_inputs(B, F_, C, n_fft, hop, seed):
+    rng = np.random.default_rng(seed)
+    tail = n_fft - hop
+    z = (3 * rng.standard_normal((B, F_, C, n_fft))).astype(np.float32)
+    win = rng.uniform(0, 1, n_fft).astype(np.float32)
+    out_tail = rng.standard_normal((B, tail, C)).astype(np.float32)
+    w_tail = rng.uniform(0, 1, (B, tail)).astype(np.float32)
+    w_tail[:, ::5] = 0.0
+    return z, win, win * win, out_tail, w_tail, np.float32(0.7)
+
+
+@pytest.mark.parametrize("F_,C,n_fft,hop,n_valid", [
+    (5, 2, 16, 8, [5, 0, 3, -2]),   # full, frozen, partial, negative
+    (4, 1, 24, 8, [0, 9]),          # K=3, C=1, n_valid past F
+    (3, 2, 32, 8, [0]),             # F < K-1: carry and tail overlap
+])
+@pytest.mark.parametrize("norm", ["eps", "floor8"])
+@pytest.mark.parametrize("transport", ["f32", "pcm24"])
+def test_batched_plain_is_per_lane_plain_with_freeze(transport, norm, F_, C,
+                                                     n_fft, hop, n_valid):
+    B = len(n_valid)
+    z, win, win2, ot, wt, gain = (
+        torch.from_numpy(np.asarray(a)) for a in
+        _batched_inputs(B, F_, C, n_fft, hop, seed=F_ * 7 + C))
+    nv = torch.tensor(n_valid, dtype=torch.int32)
+    got = cuda_ola.chunk_tail_batched_plain(z, win, win2, nv, ot, wt, gain,
+                                            norm=norm, transport=transport)
+    for b, n in enumerate(n_valid):
+        ref = cuda_ola.chunk_tail_plain(z[b], win, win2, n, ot[b], wt[b],
+                                        gain, norm=norm, transport=transport)
+        if n <= 0:    # a lane with no valid frame freezes its carries
+            ref = ref[:3] + (ot[b], wt[b])
+        for g, r in zip(got, ref):
+            assert (g is None) == (r is None)
+            if r is not None:
+                assert g.dtype == r.dtype and torch.equal(g[b], r)
+
+
+def _emulate_batched(z, win, win2, n_valid, out_tail, w_tail, gain, norm,
+                     transport, threads):
+    """The batched entry in Python: lane b (blockIdx.y) takes its slices
+    of flat [B, ...] buffers at select_lane's offsets, clamps its n_valid
+    to [0, F] and freezes at 0; then the tile loop of _emulate_kernel.
+    Every element of every flat output is written exactly once."""
+    B, F_, C, n_fft = z.shape
+    tail = w_tail.shape[1]
+    hop = n_fft - tail
+    W = F_ + n_fft // hop - 1
+    L = W * hop
+    pcm24 = transport == "pcm24"
+    flats = dict(out=np.zeros(B * L * C, np.float32),
+                 peaks=np.zeros(B * W, np.float32),
+                 pcm=np.zeros(B * L * C * 3, np.uint8),
+                 ola_c=np.zeros(B * tail * C, np.float32),
+                 w_c=np.zeros(B * tail, np.float32))
+    counts = {k: np.zeros(v.size, int) for k, v in flats.items()}
+    zf, otf, wtf = z.reshape(-1), out_tail.reshape(-1), w_tail.reshape(-1)
+    for b in range(B):                                   # blockIdx.y
+        nv = min(max(int(n_valid[b]), 0), F_)
+        zb = zf[b * F_ * C * n_fft:(b + 1) * F_ * C * n_fft]
+        otb = otf[b * tail * C:(b + 1) * tail * C]
+        wtb = wtf[b * tail:(b + 1) * tail]
+        res, _ = _emulate_kernel(zb.reshape(F_, C, n_fft), win, win2, nv,
+                                 otb.reshape(tail, C), wtb, gain, norm,
+                                 transport, threads, freeze=nv == 0)
+        offs = dict(out=b * L * C, peaks=b * W, pcm=b * L * C * 3,
+                    ola_c=b * tail * C, w_c=b * tail)
+        for k, v in zip(("out", "peaks", "pcm", "ola_c", "w_c"), res):
+            if v is None:
+                continue
+            v = v.reshape(-1)
+            flats[k][offs[k]:offs[k] + v.size] = v
+            counts[k][offs[k]:offs[k] + v.size] += 1
+    for k, n in counts.items():
+        if pcm24 or k not in ("peaks", "pcm"):
+            assert np.all(n == 1), k
+    return (flats["out"].reshape(B, L, C),
+            flats["peaks"].reshape(B, W) if pcm24 else None,
+            flats["pcm"].reshape(B, -1) if pcm24 else None,
+            flats["ola_c"].reshape(B, tail, C), flats["w_c"].reshape(B, tail))
+
+
+@pytest.mark.parametrize("F_,C,n_fft,hop,norm,n_valid", [
+    (5, 2, 16, 8, "eps", [5, 0, 2]),        # 4-sample groups, a frozen lane
+    (4, 1, 24, 8, "floor8", [0, 9]),        # K=3, C=1, clamped n_valid
+    (3, 2, 32, 8, "eps", [0, 3]),           # F < K-1
+    (4, 2, 12, 6, "floor8", [-1, 3]),       # hop % 4 != 0: the scalar loop
+    (3, 3, 16, 8, "eps", [2, 0]),           # C=3: the scalar loop
+])
+@pytest.mark.parametrize("transport", ["f32", "pcm24"])
+def test_batched_kernel_index_math_emulation(F_, C, n_fft, hop, norm,
+                                             n_valid, transport):
+    B = len(n_valid)
+    z, win, win2, ot, wt, gain = _batched_inputs(B, F_, C, n_fft, hop,
+                                                 seed=B * 100 + n_fft)
+    got = _emulate_batched(z, win, win2, n_valid, ot, wt, gain, norm,
+                           transport, threads=2)
+    ref = cuda_ola.chunk_tail_batched_plain(
+        *(torch.from_numpy(np.asarray(a)) for a in (z, win, win2)),
+        torch.tensor(n_valid, dtype=torch.int32), torch.from_numpy(ot),
+        torch.from_numpy(wt), torch.tensor(gain), norm=norm,
+        transport=transport)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if r is not None:
+            r = r.numpy()
+            assert g.shape == r.shape and g.dtype == r.dtype
+            np.testing.assert_array_equal(g.view(np.uint8), r.view(np.uint8))
+
+
+# -- the wrapper's contract on the CPU ----------------------------------------
 
 def _tail_args(F_=4, C=2, n_fft=16, hop=8, dev="cpu", seed=0):
     g = torch.Generator().manual_seed(seed)
@@ -348,29 +466,3 @@ def test_chunk_tail_cuda_refuses_what_it_cannot_launch():
         cuda_ola.chunk_tail_plain(args[0], args[1], args[2], 4,
                                   torch.zeros((5, 2)), torch.zeros(5),
                                   args[6])
-
-
-@pytest.mark.cuda
-def test_chunk_tail_cuda_equals_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    cases = [(64, 2, 4096, 2048, 64), (64, 2, 4096, 2048, 30),
-             (9, 2, 384, 128, 9), (7, 1, 512, 128, 7), (6, 2, 300, 150, 6),
-             (5, 3, 256, 128, 5), (3, 2, 256, 128, 0)]
-    for F_, C, n_fft, hop, n_valid in cases:
-        z, win, win2, _, ot, wt, gain = _tail_args(F_, C, n_fft, hop, "cuda",
-                                                   seed=F_)
-        for transport in ("f32", "pcm24"):
-            for norm in ("eps", "floor8"):
-                n0 = cuda_ola.chunk_tail_cuda.launches
-                got = cuda_ola.chunk_tail_cuda(z, win, win2, n_valid, ot, wt,
-                                               gain, norm, transport)
-                torch.cuda.synchronize()
-                assert cuda_ola.chunk_tail_cuda.launches == n0 + 1
-                ref = cuda_ola.chunk_tail_plain(z, win, win2, n_valid, ot, wt,
-                                                gain, norm, transport)
-                for g, r in zip(got, ref):
-                    assert (g is None) == (r is None)
-                    if r is not None:
-                        assert torch.equal(g, r), (F_, C, n_fft, hop,
-                                                   transport, norm)

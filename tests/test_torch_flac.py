@@ -154,3 +154,35 @@ def test_build_failure_is_reported(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="native build failed"):
         build._compile(str(tmp_path / "nope.cpp"), str(tmp_path / "b" / "x.so"))
     assert not list((tmp_path / "b").glob("*.tmp"))
+
+
+@pytest.mark.parametrize("change", ["flags", "host"])
+def test_library_name_keys_flags_and_host(tmp_path, monkeypatch, change):
+    """Other compile flags or another host give another library file, and
+    a library built for the old key is not loaded, though it is newer
+    than its source."""
+    import os
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_CACHE", {})
+    src = os.path.join(build.CSRC_DIR, "wire.cpp")
+    old = build.library_path("wire", src)
+    with open(old, "wb") as f:
+        f.write(b"a library built for the old key")
+    if change == "flags":
+        monkeypatch.setattr(build, "CXX_FLAGS",
+                            build.CXX_FLAGS + ["-DTOMATIS_OTHER_FLAGS"])
+    else:
+        monkeypatch.setattr(build.platform, "machine", lambda: "other-cpu")
+    new = build.library_path("wire", src)
+    assert new != old and os.path.dirname(new) == str(tmp_path)
+    compiled, loaded = [], []
+
+    def compile_(s, out):
+        compiled.append(out)
+        with open(out, "wb") as f:
+            f.write(b"stub")
+
+    monkeypatch.setattr(build, "_compile", compile_)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda p: loaded.append(p))
+    build.load_library("wire")
+    assert compiled == [new] and loaded == [new]

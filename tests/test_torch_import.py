@@ -84,3 +84,31 @@ def test_entry_points_default_to_cuda():
         standard.process_array(x, 48000)
     with pytest.raises(RuntimeError, match="CUDA"):
         standard.build_controller(standard.StandardParams(), 48000)
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py",
+                                  "tests/test_torch_cuda_kernels.py"])
+def test_card_scripts_import_no_jax(path):
+    """chip_smoke.py and the card's pytest file run on a machine without
+    jax: no import statement anywhere in them names jax or the JAX
+    package, and importing the module pulls in neither."""
+    import ast
+    full = os.path.join(REPO, path)
+    tree = ast.parse(open(full).read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib",
+                                                   "tomatis_tpu")]
+    assert not bad, bad
+    code = ("import sys, importlib.util; sys.path.insert(0, %r); "
+            "spec = importlib.util.spec_from_file_location('m', %r); "
+            "mod = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(mod); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tomatis_tpu')); assert not bad, bad"
+            % (REPO, full))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]

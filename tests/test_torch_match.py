@@ -303,14 +303,15 @@ def test_cli_appliers_and_adaptive(files, reports, capsys):
 
 
 def test_cli_lists_thirteen_commands(capsys):
+    """Every ported command, process-batch included: fourteen."""
     assert cli_main.main(["--help"]) == 0
     out = capsys.readouterr().out
     for cmd in ("process", "process-xfade", "convert", "process-adaptive",
                 "apply-eq", "apply-residual-eq", "declick", "cut",
                 "compare", "analyze-eq", "calibrate", "calibrate-v2",
-                "match"):
+                "match", "process-batch"):
         assert f"\n  {cmd} " in out, cmd
-    assert len(cli_main.COMMANDS) == 13
+    assert len(cli_main.COMMANDS) == 14
 
 
 def test_cli_default_device_fails_without_card(files, capsys):

@@ -293,3 +293,65 @@ def test_flac_source_through_the_staging_process(tmp_path, monkeypatch):
     assert a.read_bytes() == b.read_bytes()
     assert (tmp_path / "a.csv").read_bytes() == \
         (tmp_path / "b.csv").read_bytes()
+
+
+def test_failed_send_releases_the_singleton(tmp_path, monkeypatch):
+    """A worker whose job send fails (it died after the alive() check) is
+    destroyed and the singleton released: _WORKER_BUSY is empty and the
+    next stream takes the singleton again, not a throwaway worker."""
+    ip = tmp_path / "ok.wav"
+    audio.write(ip, _signal(0.5), SR, subtype="PCM_24")
+    job = (str(ip), True, 2, 0, 1024, [(0, 4096, None)], False)
+    staging.shutdown_workers()
+    real_send = staging._Worker.send
+
+    def broken_send(self, obj):
+        raise BrokenPipeError("worker gone")
+
+    monkeypatch.setattr(staging._Worker, "send", broken_send)
+    with pytest.raises(BrokenPipeError):
+        staging.stage_stream(*job)
+    assert staging._WORKER_BUSY == [] and staging._WORKER == []
+    monkeypatch.setattr(staging._Worker, "send", real_send)
+    st = staging.stage_stream(*job)
+    assert not st._dedicated and staging._WORKER_BUSY == [st]
+    assert st.get()[0] == "wire"
+    with pytest.raises(StopIteration):
+        st.get()
+    st.close()
+    assert staging._WORKER_BUSY == []
+
+
+@pytest.mark.parametrize("where", ["stage_stream", "ensure_rpc_worker"])
+def test_staging_start_failure_falls_back_to_the_thread(infile, tmp_path,
+                                                        monkeypatch, where):
+    """Any exception while the staging process starts (a ValueError here,
+    not an OSError) falls back to the thread producer, as in the reference,
+    and writes the same bytes; a stream already opened is closed (the
+    singleton is not left busy) and every writer thread is stopped."""
+    monkeypatch.setenv("TOMATIS_PROCESS_STAGE", "0")
+    ref = tmp_path / "ref.wav"
+    _process(infile, ref)
+    monkeypatch.setenv("TOMATIS_PROCESS_STAGE", "1")
+    real = getattr(staging, where)
+
+    def start_then_fail(*a, **k):
+        if where == "ensure_rpc_worker":
+            real(*a, **k)
+        raise ValueError("cannot start")
+
+    workers = []
+
+    class Recorded(S.OrderedWorker):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            workers.append(self)
+
+    monkeypatch.setattr(S.staging, where, start_then_fail)
+    monkeypatch.setattr(S, "OrderedWorker", Recorded)
+    out = tmp_path / "out.wav"
+    st = _process(infile, out)
+    assert st["producer"] == "thread" and st["chunks"] > 8
+    assert out.read_bytes() == ref.read_bytes()
+    assert staging._WORKER_BUSY == []
+    assert workers and not any(w._thread.is_alive() for w in workers)

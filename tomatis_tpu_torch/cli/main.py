@@ -1,9 +1,10 @@
 """CLI dispatcher of the PyTorch port:
 `python -m tomatis_tpu_torch.cli.main <command> ...`.
 
-The three processors, the EQ appliers, the repair tools and the
-device-matching workflow with its analysis commands are ported; the other
-commands of tomatis_tpu/cli/main.py are queued in ROADMAP.md.
+The three processors, the batch processor, the EQ appliers, the repair
+tools and the device-matching workflow with its analysis commands are
+ported; the other commands of tomatis_tpu/cli/main.py are queued in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ COMMANDS = {
                 "standard gate-controlled C1/C2 tilt processor"),
     "process-xfade": ("tomatis_tpu_torch.cli.process_xfade",
                       "processor with crossfade state transitions"),
+    "process-batch": ("tomatis_tpu_torch.cli.process_batch",
+                      "process many files per device step (file lanes)"),
     "process-adaptive": ("tomatis_tpu_torch.cli.process_adaptive",
                          "adaptive processor (auto threshold, min-hold, "
                          "crossfade)"),

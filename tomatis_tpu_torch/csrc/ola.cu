@@ -6,7 +6,7 @@
 // passes that follow it in the reference chunk step
 // (tomatis_tpu/engine/streaming.py:501-545: window, mask, the frame and
 // window-square overlap-adds, tail adds, normalise, output gain, peaks,
-// PCM_24 quantise). One tile loop serves two entry points:
+// PCM_24 quantise). One tile loop serves three entry points:
 //
 //   tomatis_ola_f32         out[n, c] = sum_{i<K, 0<=t-i<F} y[t-i, c, i*hop+s]
 //   tomatis_chunk_tail_f32  per output sample n = t*hop + s, channel c:
@@ -19,6 +19,15 @@
 //              3 little-endian bytes of clamp(rint(out * 2^23))
 //       both:  the raw acc and w of n >= F*hop, the carries to the next
 //              chunk
+//   tomatis_chunk_tail_batched_f32  the chunk tail of B file lanes in one
+//       launch: the reference runs the kernel under jax.vmap over lanes
+//       (tomatis_tpu/parallel/batch.py:92, 272); here blockIdx.y is the
+//       lane. Every lane has its own frames, tails, outputs and n_valid
+//       (an int32 device array, read by the kernel: no host sync), and
+//       shares win, win2 and the gain. A lane with n_valid == 0 freezes
+//       its carries: it writes its input tails to them unchanged, as the
+//       reference's jnp.where(n_valid > 0, ...) does per lane
+//       (tomatis_tpu/engine/streaming.py:526-533), in the same pass.
 // with K = n_fft/hop, W = F + K - 1 tiles and L = W*hop. mask[f] is
 // f < n_valid. Each sum runs i = 0..K-1 from 0.0f, and every product and
 // sum is rounded as the plain PyTorch composition rounds it
@@ -29,8 +38,8 @@
 //
 // Bound: bytes. About 0.1 flop per byte moved, so the tensor cores and
 // TMA have no part in it; the design moves each byte once, 16 at a time:
-// - One block owns one hop tile t (blockIdx.x, a 1-D grid of W tiles:
-//   x has no 65535 limit), so the frame index t-i and the in-frame
+// - One block owns one hop tile t (blockIdx.x, W tiles: x has no 65535
+//   limit; the batched entry adds the lane as blockIdx.y), so the frame index t-i and the in-frame
 //   offset i*hop+s need no division, and the tile's peak is a block
 //   reduction (warp shuffles, then shared memory). Up to 512 threads run
 //   along s: at hop 2048 each takes one 4-sample group, with no loop.
@@ -70,7 +79,26 @@ struct Args {
     float* ola_carry;       // [tail, C]      (chunk tail only)
     float* w_carry;         // [tail]         (chunk tail only)
     int F, C, n_fft, hop, K, n_valid, tail;
+    bool freeze;            // write the input tails to the carries
 };
+
+// The batched entry's view of lane b: every per-lane array is [B, ...],
+// lane b its b-th contiguous slice; n_valid [B] int32 on the device.
+__device__ __forceinline__ void select_lane(Args& a, const int* n_valid,
+                                            int b) {
+    const long long L = (long long)(a.F + a.K - 1) * a.hop;
+    a.z += (long long)b * a.F * a.C * a.n_fft;
+    a.out_tail += (long long)b * a.tail * a.C;
+    a.w_tail += (long long)b * a.tail;
+    a.out += (long long)b * L * a.C;
+    if (a.peaks) a.peaks += (long long)b * (a.F + a.K - 1);
+    if (a.pcm) a.pcm += (long long)b * L * a.C * 3;
+    a.ola_carry += (long long)b * a.tail * a.C;
+    a.w_carry += (long long)b * a.tail;
+    const int nv = __ldg(n_valid + b);
+    a.n_valid = nv < 0 ? 0 : (nv > a.F ? a.F : nv);
+    a.freeze = a.n_valid == 0;
+}
 
 __device__ __forceinline__ float normalise(float acc, float w, int norm) {
     if (norm == kEps) return __fdiv_rn(acc, __fadd_rn(w, 1e-12f));
@@ -176,7 +204,15 @@ __device__ __forceinline__ float group4(const Args& a, int t, int s0) {
             }
         }
         const long long r = n0 - (long long)a.F * a.hop;
-        if (r >= 0) {
+        if (r >= 0 && a.freeze) {
+            // r < tail: the carry region mirrors the input tails
+            reinterpret_cast<float4*>(a.w_carry + r)[0] =
+                __ldg(reinterpret_cast<const float4*>(a.w_tail + r));
+#pragma unroll
+            for (int v = 0; v < CT; ++v)
+                reinterpret_cast<float4*>(a.ola_carry + r * CT)[v] =
+                    __ldg(reinterpret_cast<const float4*>(a.out_tail + r * CT) + v);
+        } else if (r >= 0) {
             reinterpret_cast<float4*>(a.w_carry + r)[0] =
                 make_float4(w[0], w[1], w[2], w[3]);
 #pragma unroll
@@ -240,7 +276,7 @@ __device__ __forceinline__ float sample1(const Args& a, int t, int s) {
             w = __fadd_rn(w, __fmul_rn(a.win2[i * a.hop + s], m));
         }
         if (n < a.tail) w = __fadd_rn(w, a.w_tail[n]);
-        if (r >= 0) a.w_carry[r] = w;
+        if (r >= 0) a.w_carry[r] = a.freeze ? a.w_tail[r] : w;
         if constexpr (MODE == kPcm24) g = __ldg(a.gain);
     }
     float pk = 0.0f;
@@ -260,7 +296,9 @@ __device__ __forceinline__ float sample1(const Args& a, int t, int s) {
         float x = acc;
         if constexpr (MODE != kOla) {
             if (n < a.tail) acc = __fadd_rn(acc, a.out_tail[n * a.C + c]);
-            if (r >= 0) a.ola_carry[r * a.C + c] = acc;
+            if (r >= 0)
+                a.ola_carry[r * a.C + c] =
+                    a.freeze ? a.out_tail[r * a.C + c] : acc;
             x = normalise(acc, w, NORM);
             if constexpr (MODE == kPcm24) x = __fmul_rn(x, g);
         }
@@ -278,9 +316,12 @@ __device__ __forceinline__ float sample1(const Args& a, int t, int s) {
 }
 
 // CT in {1, 2}: 4-sample groups; CT == 0: the scalar loop, any C.
-template <int MODE, int NORM, int CT>
+// BATCHED: blockIdx.y is the lane (select_lane).
+template <int MODE, int NORM, int CT, bool BATCHED>
 __global__ void __launch_bounds__(kMaxThreads)
-chunk_tail_kernel(const Args a) {
+chunk_tail_kernel(const Args args, const int* lane_n_valid) {
+    Args a = args;
+    if constexpr (BATCHED) select_lane(a, lane_n_valid, blockIdx.y);
     const int t = blockIdx.x;
     float pk = 0.0f;
     if constexpr (CT > 0) {
@@ -312,8 +353,12 @@ bool aligned16(const void* p) {
     return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// lane_n_valid null: the single-file kernel. Otherwise the batched one
+// over `lanes` lanes; with hop % 4 == 0 every lane's slice keeps the base
+// pointers' 16-byte alignment (the pcm stores need 8 or 4).
 template <int MODE, int NORM>
-int launch(const Args& a, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream,
+           const int* lane_n_valid = nullptr, int lanes = 1) {
     const bool vec = a.hop % 4 == 0 && (a.C == 1 || a.C == 2)
         && aligned16(a.z) && aligned16(a.win) && aligned16(a.win2)
         && aligned16(a.out_tail) && aligned16(a.w_tail) && aligned16(a.out)
@@ -321,13 +366,25 @@ int launch(const Args& a, cudaStream_t stream) {
     const int per_tile = vec ? a.hop / 4 : a.hop;
     int threads = (per_tile + 31) / 32 * 32;
     if (threads > kMaxThreads) threads = kMaxThreads;
-    const unsigned int tiles = (unsigned int)(a.F + a.K - 1);
-    if (vec && a.C == 1)
-        chunk_tail_kernel<MODE, NORM, 1><<<tiles, threads, 0, stream>>>(a);
-    else if (vec)
-        chunk_tail_kernel<MODE, NORM, 2><<<tiles, threads, 0, stream>>>(a);
+    const dim3 grid((unsigned int)(a.F + a.K - 1), (unsigned int)lanes);
+    const int ct = vec ? a.C : 0;
+    if constexpr (MODE != kOla) {   // the standalone OLA has no lane axis
+        if (lane_n_valid != nullptr) {
+            if (ct == 1)
+                chunk_tail_kernel<MODE, NORM, 1, true><<<grid, threads, 0, stream>>>(a, lane_n_valid);
+            else if (ct == 2)
+                chunk_tail_kernel<MODE, NORM, 2, true><<<grid, threads, 0, stream>>>(a, lane_n_valid);
+            else
+                chunk_tail_kernel<MODE, NORM, 0, true><<<grid, threads, 0, stream>>>(a, lane_n_valid);
+            return (int)cudaGetLastError();
+        }
+    }
+    if (ct == 1)
+        chunk_tail_kernel<MODE, NORM, 1, false><<<grid, threads, 0, stream>>>(a, lane_n_valid);
+    else if (ct == 2)
+        chunk_tail_kernel<MODE, NORM, 2, false><<<grid, threads, 0, stream>>>(a, lane_n_valid);
     else
-        chunk_tail_kernel<MODE, NORM, 0><<<tiles, threads, 0, stream>>>(a);
+        chunk_tail_kernel<MODE, NORM, 0, false><<<grid, threads, 0, stream>>>(a, lane_n_valid);
     return (int)cudaGetLastError();
 }
 
@@ -365,13 +422,38 @@ int tomatis_chunk_tail_f32(const float* z, const float* win,
         return (int)cudaErrorInvalidValue;
     Args a = {z, win, win2, out_tail, w_tail, gain, out, peaks, pcm,
               ola_carry, w_carry, F, C, n_fft, hop, n_fft / hop, n_valid,
-              n_fft - hop};
+              n_fft - hop, false};
     cudaStream_t s = (cudaStream_t)stream;
     if (transport == 0)
         return norm == 0 ? launch<kEmitF32, kEps>(a, s)
                          : launch<kEmitF32, kFloor8>(a, s);
     return norm == 0 ? launch<kPcm24, kEps>(a, s)
                      : launch<kPcm24, kFloor8>(a, s);
+}
+
+// The chunk tail of B lanes in one launch (see the note above): z
+// [B, F, C, n_fft], out_tail [B, tail, C], w_tail [B, tail], n_valid [B]
+// int32 on the device; out [B, L, C], peaks [B, W], pcm [B, L*C*3],
+// ola_carry [B, tail, C], w_carry [B, tail]; win, win2 and gain shared.
+int tomatis_chunk_tail_batched_f32(
+        const float* z, const float* win, const float* win2,
+        const float* out_tail, const float* w_tail, const float* gain,
+        const int* n_valid, float* out, float* peaks, uint8_t* pcm,
+        float* ola_carry, float* w_carry, int B, int F, int C, int n_fft,
+        int hop, int norm, int transport, void* stream) {
+    if (B <= 0 || B > 65535 || n_valid == nullptr
+        || bad_shape(F, C, n_fft, hop) || (norm != 0 && norm != 1)
+        || (transport != 0 && transport != 1))
+        return (int)cudaErrorInvalidValue;
+    Args a = {z, win, win2, out_tail, w_tail, gain, out, peaks, pcm,
+              ola_carry, w_carry, F, C, n_fft, hop, n_fft / hop, 0,
+              n_fft - hop, false};
+    cudaStream_t s = (cudaStream_t)stream;
+    if (transport == 0)
+        return norm == 0 ? launch<kEmitF32, kEps>(a, s, n_valid, B)
+                         : launch<kEmitF32, kFloor8>(a, s, n_valid, B);
+    return norm == 0 ? launch<kPcm24, kEps>(a, s, n_valid, B)
+                     : launch<kPcm24, kFloor8>(a, s, n_valid, B);
 }
 
 const char* tomatis_cuda_error_string(int err) {

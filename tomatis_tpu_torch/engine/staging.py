@@ -186,7 +186,19 @@ class StagedStream:
                 self._w = _WORKER[0]
                 self._dedicated = False
                 _WORKER_BUSY.append(self)
-        self._w.send(job)
+        try:
+            self._w.send(job)
+        except BaseException:
+            # a worker that died after the alive() check: destroy it and
+            # release the singleton, or every later stream would take a
+            # throwaway worker
+            self._w.kill()
+            with _LOCK:
+                if not self._dedicated and _WORKER and _WORKER[0] is self._w:
+                    _WORKER.clear()
+                if self in _WORKER_BUSY:
+                    _WORKER_BUSY.remove(self)
+            raise
         self._finished = False
 
     def _finish(self):

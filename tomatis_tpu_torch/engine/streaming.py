@@ -319,17 +319,7 @@ class ChunkedStftEngine:
         rice = WIRE_RICE_OUT if rice_out is None else bool(rice_out)
         if norm not in ("eps", "floor8"):
             raise ValueError(norm)
-        log_keys = tuple(getattr(controller, "LOG_KEYS", ()))
-        if self._log_keys_bound and self.log_keys != log_keys:
-            # the aux rows' layout follows self.log_keys; rebinding one
-            # engine to controllers with different log rows would
-            # silently misalign it: one engine per controller type
-            raise ValueError(
-                f"engine already bound to LOG_KEYS {self.log_keys}; "
-                f"controller wants {log_keys} — use a separate "
-                "ChunkedStftEngine per controller type")
-        self._log_keys_bound = True
-        self.log_keys = log_keys
+        log_keys = self._bind_log_keys(controller)
         self.transport = transport
         tail_transport = "f32" if transport == "f32" else "pcm24"
         C = self.channels
@@ -384,6 +374,73 @@ class ChunkedStftEngine:
                 return (wire_ops.pack_device(v, v.shape[0], C, rice=rice),
                         aux, out) + carries
             return (pcm, aux, out) + carries
+
+        return chunk_fn
+
+    def _bind_log_keys(self, controller) -> tuple:
+        """Bind the aux rows' layout to the controller's LOG_KEYS. Rebinding
+        one engine to controllers with different log rows would silently
+        misalign it: one engine per controller type."""
+        log_keys = tuple(getattr(controller, "LOG_KEYS", ()))
+        if self._log_keys_bound and self.log_keys != log_keys:
+            raise ValueError(
+                f"engine already bound to LOG_KEYS {self.log_keys}; "
+                f"controller wants {log_keys} — use a separate "
+                "ChunkedStftEngine per controller type")
+        self._log_keys_bound = True
+        self.log_keys = log_keys
+        return log_keys
+
+    def make_batch_chunk_fn(self, controller) -> Callable:
+        """The pcm24 chunk step of B file lanes (parallel/batch.py), the
+        counterpart of the reference's jax.vmap of make_chunk_fn over lanes
+        (tomatis_tpu/parallel/batch.py:272):
+        fn(sig [B, L, C], n_valid int32 [B], ctl_carries (a list of B
+        carries), out_tail [B, tail, C], w_tail [B, tail], params,
+        gain_lin) -> (pcm [B, W*hop*C*3] uint8, aux [B, R, W],
+        out [B, W*hop, C], ctl_carries', out_tail', w_tail').
+
+        Framing, levels, the controller and the rFFT gain bank run lane by
+        lane at the single-file shapes, so each lane's arithmetic (cuFFT's
+        plan included) is its single-file run's; then ONE launch of the
+        batched chunk tail serves every lane. A lane with n_valid == 0
+        freezes every carry: the kernel writes its tails back, and its
+        controller carry is kept by torch.where on n_valid > 0 (no host
+        sync)."""
+        log_keys = self._bind_log_keys(controller)
+        n_fft, hop, F = self.n_fft, self.hop, self.frames_per_chunk
+        C, W, dev = self.channels, self.aux_width, self.device
+        win = torch.as_tensor(self.window, device=dev)
+        win2 = win * win
+        frame_idx = torch.arange(F, device=dev)
+
+        def chunk_fn(sig, n_valid, ctl_carries, out_tail, w_tail, params,
+                     gain_lin):
+            B = sig.shape[0]
+            keep = n_valid > 0
+            z = torch.empty((B, F, C, n_fft), dtype=torch.float32,
+                            device=sig.device)
+            aux_rows, carries = [], []
+            for b in range(B):
+                frames = stft.frame_signal(sig[b], n_fft, hop, F)
+                levels = frame_levels_dbfs(frames.permute(0, 2, 1))
+                gains, log, c_new = controller.step(
+                    levels, frame_idx < n_valid[b], ctl_carries[b], params)
+                z[b] = stft.gain_bank_irfft(frames, win, gains)
+                rows = [levels] + [log[k] for k in log_keys]
+                aux_rows.append(torch.stack([
+                    torch.nn.functional.pad(r.to(torch.float32), (0, W - F))
+                    for r in rows]))
+                carries.append(_carry_like(c_new, [
+                    torch.where(keep[b], new, old) for new, old in zip(
+                        _carry_leaves(c_new), _carry_leaves(ctl_carries[b]))]))
+            chunk_tail = (cuda_ola.chunk_tail_batched_cuda if z.is_cuda
+                          else cuda_ola.chunk_tail_batched_plain)
+            out, peaks, pcm, ola_t, w_t = chunk_tail(
+                z, win, win2, n_valid, out_tail, w_tail, gain_lin,
+                transport="pcm24")
+            aux = torch.cat([torch.stack(aux_rows), peaks[:, None, :]], 1)
+            return pcm, aux, out, carries, ola_t, w_t
 
         return chunk_fn
 
@@ -544,7 +601,7 @@ class StreamRunner:
 
     def __init__(self, engine: ChunkedStftEngine, controller, total: int,
                  output_gain_db: float = 0.0, transport: str = "f32",
-                 wire_input: bool = True,
+                 build_chunk_fn: bool = True, wire_input: bool = True,
                  wire_rice_out: bool | None = None):
         """transport="pcm24" quantises and packs PCM_24 bytes on the device;
         the per-flush clamp decision then uses device-computed per-hop-block
@@ -560,7 +617,11 @@ class StreamRunner:
         sources) ship as float32.
 
         wire_rice_out: the wire transport's output rice mode; None picks
-        by the measured link (resolve_rice_out)."""
+        by the measured link (resolve_rice_out).
+
+        build_chunk_fn=False: the runner carries the flush plan, total and
+        output gain of one lane of parallel/batch.py and builds no chunk
+        step (so no ramp) and cannot run()."""
         self.engine = engine
         self.controller = controller
         self.total = int(total)
@@ -568,19 +629,21 @@ class StreamRunner:
             if output_gain_db else 1.0
         self.plan = flush_plan(total, engine.n_fft, engine.hop)
         self.transport = transport
-        if wire_rice_out is None and transport == "wire":
+        if wire_rice_out is None and transport == "wire" and build_chunk_fn:
             wire_rice_out = resolve_rice_out(engine.device)
         self.wire_rice_out = wire_rice_out
-        self.chunk_fn = engine.make_chunk_fn(controller, transport=transport,
-                                             rice_out=wire_rice_out)
+        self.chunk_fn = (engine.make_chunk_fn(controller, transport=transport,
+                                              rice_out=wire_rice_out)
+                         if build_chunk_fn else None)
         # Ramp-up schedule (F/4, F/2, then F): it fills the pipeline
         # sooner, and it is kept from the reference so that a stream is cut
         # into the same chunks, and so sums in the same order, on both
         # packages.
         F_c = engine.frames_per_chunk
         self._by_F = {F_c: (engine, self.chunk_fn)}
-        self._ramp = bool(self.plan.n_frames > 2 * F_c and F_c % 4 == 0
-                          and F_c // 4 >= 64 and not ramp_disabled())
+        self._ramp = bool(build_chunk_fn and self.plan.n_frames > 2 * F_c
+                          and F_c % 4 == 0 and F_c // 4 >= 64
+                          and not ramp_disabled())
         if self._ramp:
             for f in (F_c // 4, F_c // 2):
                 e = ChunkedStftEngine(engine.n_fft, engine.hop,
@@ -739,9 +802,8 @@ class StreamRunner:
         # file write with its FLAC encode) runs on the ordered worker, so
         # on_frames/on_audio/on_progress run there. Jobs run strictly in
         # order; the checkpoint and final-flush paths join the queue
-        # first, so everything they read is fully drained. (Writer first:
-        # a failed producer start then leaks only an idle daemon, not a
-        # spinning producer holding the input file.)
+        # first, so everything they read is fully drained. Both are made
+        # inside the try whose finally closes them.
         def produce(f0):
             # chunk sizes must track the main loop exactly; _chunk_F is a
             # pure function of the frame cursor, so both sides agree
@@ -754,19 +816,20 @@ class StreamRunner:
                     reader.advance(-pad + f0 * hop)
                 yield item, e_i
 
-        writer = OrderedWorker()
-        # Input staging: a separate PROCESS when the source is a
-        # wire-encodable file long enough for the worker's one-time spawn
-        # to amortise (> 8 chunks; it persists across runs of one parent
-        # process); the thread producer for arrays, the raw transports,
-        # short files and TOMATIS_PROCESS_STAGE=0.
-        src_path = getattr(source, "path", None)
-        prefetch = None
-        decode_offload = False
-        if (self.wire_input and src_path
-                and not isinstance(source, np.ndarray)
-                and n_frames - frame0 > 8 * F_c
-                and staging.process_staging_enabled()):
+        def start_producer():
+            """Input staging: a separate PROCESS when the source is a
+            wire-encodable file long enough for the worker's one-time
+            spawn to amortise (> 8 chunks; it persists across runs of one
+            parent process); the thread producer for arrays, the raw
+            transports, short files, TOMATIS_PROCESS_STAGE=0 and any
+            failure to start the process (as in the reference). Returns
+            (prefetch, decode_offload)."""
+            src_path = getattr(source, "path", None)
+            if not (self.wire_input and src_path
+                    and not isinstance(source, np.ndarray)
+                    and n_frames - frame0 > 8 * F_c
+                    and staging.process_staging_enabled()):
+                return Prefetcher(produce(frame0)), False
             sched, e_list = [], []
             f0s = frame0
             while f0s < n_frames:
@@ -777,21 +840,21 @@ class StreamRunner:
                               (-pad + f0s * hop) if f0s < n_frames
                               else None))
                 e_list.append(e_s)
+            stream = None
             try:
-                prefetch = _ProcessPrefetch(
-                    staging.stage_stream(src_path, int_in, C, in_base,
-                                         eng.emit_len, sched, WIRE_RICE_IN),
-                    e_list)
+                stream = staging.stage_stream(src_path, int_in, C, in_base,
+                                              eng.emit_len, sched,
+                                              WIRE_RICE_IN)
                 # the consume side's wire decode rides a worker process
                 # too (its spawn overlaps the first chunks; local decode
                 # on any trouble)
                 staging.ensure_rpc_worker()
-                decode_offload = True
-            except OSError:
-                prefetch = None   # worker spawn failed: thread fallback
-        producer = "process" if prefetch is not None else "thread"
-        if prefetch is None:
-            prefetch = Prefetcher(produce(frame0))
+            except Exception:
+                # a stream already opened must not keep the singleton busy
+                if stream is not None:
+                    stream.close()
+                return Prefetcher(produce(frame0)), False
+            return _ProcessPrefetch(stream, e_list), True
 
         def next_staged():
             item, e_i = prefetch.get()
@@ -837,8 +900,13 @@ class StreamRunner:
         pipe = StagedPipeline(pipe_start, pipe_finish)
 
         last_full = False
-        timings["runner_setup_s"] = time.perf_counter() - t_run
+        writer = prefetch = None
+        decode_offload = False
         try:
+            writer = OrderedWorker()
+            prefetch, decode_offload = start_producer()
+            producer = "process" if decode_offload else "thread"
+            timings["runner_setup_s"] = time.perf_counter() - t_run
             while frame0 < n_frames:
                 eng_i, fn_i = self._by_F[self._chunk_F(frame0)]
                 nf = min(eng_i.frames_per_chunk, n_frames - frame0)
@@ -908,8 +976,10 @@ class StreamRunner:
             # stop a producer that is still blocked on a full queue (an
             # exception above leaves un-got items) and shut the writer
             # down; harmless after a normal exit where both are idle
-            prefetch.close()
-            writer.close()
+            if prefetch is not None:
+                prefetch.close()
+            if writer is not None:
+                writer.close()
         # if the last chunk was full, the stream's tail is still in the
         # carry (a checkpoint is always taken before a chunk's dispatch, so
         # a resumed run re-enters the loop and derives last_full again)

@@ -3,9 +3,14 @@
 Each ``csrc/<name>.cu`` holds a CUDA kernel behind a plain C interface,
 compiled with nvcc for sm_90a; each ``csrc/<name>.cpp`` is host C++ (the
 FLAC codec, the wire codec), compiled with the host C++ compiler (g++,
-else nvcc in its place). Either goes into ``native/build/lib<name>.so`` at first
-use (a source-mtime check triggers a rebuild) and is loaded with ctypes,
-the same route as the reference's g++ builds (tomatis_tpu/native/build.py).
+else nvcc in its place). Either goes into ``native/build/`` at first use
+and is loaded with ctypes, the same route as the reference's g++
+builds (tomatis_tpu/native/build.py). The library's file name carries a
+short hash of its compile commands (compiler path and flags,
+``-march=native`` included) and of the host (``platform.machine()`` and the
+compiler's ``--version``), and a source newer than the library rebuilds it:
+a library built with other flags, by another compiler or on another host
+is rebuilt, never loaded.
 No PyTorch headers are compiled, so a build takes seconds. A failed build
 raises RuntimeError: a kernel has no fall-back; a codec's callers decide
 (io/flac.py reads with the pure decoder, the processors write WAV,
@@ -14,7 +19,9 @@ io/wirecodec.py takes its numpy implementation).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -29,6 +36,7 @@ CXX_FLAGS = ["-std=c++17", "-O3", "-funroll-loops", "-shared", "-fPIC"]
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict = {}     # one per library: two sources build in parallel
 _CACHE: dict = {}
+_VERSIONS: dict = {}       # compiler path -> its --version output
 # the compiler's stderr of each build (nvcc -Xptxas -v: registers, shared
 # memory, spills)
 BUILD_LOG: dict = {}
@@ -66,16 +74,38 @@ def _cxx_commands(src: str, tmp: str) -> list:
              "-fPIC", src, "-o", tmp]]
 
 
+def _commands(src: str, out: str) -> list:
+    """Command lines that build `src` into `out`, to try in order."""
+    if src.endswith(".cu"):
+        return [[nvcc_path(), *NVCC_FLAGS, src, "-o", out]]
+    return _cxx_commands(src, out)
+
+
+def _compiler_version(compiler: str) -> str:
+    if compiler not in _VERSIONS:
+        proc = subprocess.run([compiler, "--version"], capture_output=True,
+                              text=True)
+        _VERSIONS[compiler] = proc.stdout.strip()
+    return _VERSIONS[compiler]
+
+
+def library_path(name: str, src: str) -> str:
+    """native/build/lib<name>-<key>.so: the key hashes the compile
+    commands without their file names, the machine type and the first
+    compiler's --version."""
+    cmds = _commands(src, "")
+    flags = [[a for a in cmd if a not in (src, "")] for cmd in cmds]
+    token = repr((flags, platform.machine(), _compiler_version(cmds[0][0])))
+    key = hashlib.sha256(token.encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{key}.so")
+
+
 def _compile(src: str, out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     # process-unique temp + atomic rename: a concurrent process must never
     # dlopen a half-written library
     tmp = f"{out}.{os.getpid()}.tmp"
-    if src.endswith(".cu"):
-        cmds = [[nvcc_path(), *NVCC_FLAGS, src, "-o", tmp]]
-    else:
-        cmds = _cxx_commands(src, tmp)
-    for cmd in cmds:
+    for cmd in _commands(src, tmp):
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode == 0:
             break
@@ -89,8 +119,8 @@ def _compile(src: str, out: str) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Load lib<name>.so built from csrc/<name>.cu or csrc/<name>.cpp,
-    compiling if stale."""
+    """Load the library built from csrc/<name>.cu or csrc/<name>.cpp,
+    compiling if it is missing or older than its source."""
     with _LOCK:
         name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with name_lock:
@@ -105,7 +135,7 @@ def load_library(name: str) -> ctypes.CDLL:
                 # fall-back to disable)
                 raise RuntimeError(
                     "native components disabled by TOMATIS_NO_NATIVE")
-        so = os.path.join(BUILD_DIR, f"lib{name}.so")
+        so = library_path(name, src)
         if (not os.path.exists(so)
                 or os.path.getmtime(so) < os.path.getmtime(src)):
             _compile(src, so)
