@@ -106,7 +106,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
     aggregate realtime factor, LAST_TIMINGS, peak device memory, the
     single-file walls' sum, and the lanes' codecs alone on one thread
     each, side by side;
-19. prints the card line, the kernels JSON line and, last, the result
+19. doctor: `doctor` in this process on the card exits 0 (its kernel
+    check holds one chunk_tail_cuda launch against chunk_tail_plain bit
+    for bit; its engine run launches the chunk tail per chunk);
+20. verifiers: the CLI `process` and `process-adaptive` on the 60 s WAV,
+    then validate and verify-15db on the standard output and
+    verify-15db-v2 on the adaptive one with no parameter flag (the
+    params sidecar drives them), verify-tilt on the standard output: the
+    CLI on the card, then the library call with the same arguments on
+    the card and on the CPU, which must give the same verdicts, counts
+    and flags, metrics within 1e-3 dB and spectrum CSVs within 1e-2 dB
+    per bin. Then validate and verify-15db at full size, on the
+    10-minute FLAC to FLAC pcm24 output of phase 15 with its state CSV
+    and a sidecar: verdict, wall, its split (decode, gate recomputation,
+    conditional spectrum, tilt index) and peak device memory;
+21. case study: run_case_study (40 s) on the card within
+    tests/test_case_study.py's tolerances, chunk-tail launches > 0;
+22. analyzers: the ten analyzer commands on the 60 s files;
+    analyze-stereo on the card and on the CPU writes the same CSV bytes,
+    the host-only commands run twice and print and write the same;
+23. prints the card line, the kernels JSON line and, last, the result
     line {"ok": true, "device": {...}}. Each path is driven with the
     launch counts set to 0 just before it and read just after:
     `launches_by_path` holds those readings, `launches` their sum.
@@ -116,6 +135,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import re
@@ -1555,6 +1576,278 @@ def batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
     return launches
 
 
+def quiet_call(fn, *a):
+    """fn(*a) with its standard output caught: (return value, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = fn(*a)
+    return r, buf.getvalue()
+
+
+def only_chunk_tails(cuda_ola, what: str) -> dict:
+    """The counts just after a path whose chunk count this script does not
+    know: some chunk-tail launches, nothing else."""
+    c = counts_of(cuda_ola)
+    if c["chunk_tail"] == 0 or c["overlap_add"] or c["chunk_tail_batched"]:
+        fail(f"{what}: launches {c} (expected chunk-tail launches only)")
+    return c
+
+
+def doctor_path(cuda_ola) -> dict:
+    """Phase 19: `doctor` in this process on the card, exit 0."""
+    from tomatis_tpu_torch.cli import doctor
+    reset_counts(cuda_ola)
+    t0 = time.perf_counter()
+    rc, out = quiet_call(doctor.main, [])
+    wall = time.perf_counter() - t0
+    for ln in out.strip().splitlines():
+        log(f"doctor: {ln}")
+    if rc != 0:
+        fail(f"doctor exited {rc}")
+    c = only_chunk_tails(cuda_ola, "doctor")
+    log(f"doctor: exit 0 in {wall:.3f} s, {c['chunk_tail']} chunk-tail "
+        f"launches (its kernel check and its engine run)")
+    return {"doctor": c}
+
+
+def verifier_call(cli, fn, argv: list, dev: str):
+    """fn, the library call behind a port verifier's CLI, with the
+    arguments that argv gives through the CLI's parser and, where it has
+    one, the params sidecar loader; on dev."""
+    import inspect
+    from tomatis_tpu_torch.cli._sidecar import apply_params
+    args = cli.build_parser().parse_args(argv)
+    if hasattr(args, "params"):
+        apply_params(args, cli.build_parser, argv)
+        del args.params
+    kw = vars(args)
+    kw["device"] = dev
+    first, second = list(inspect.signature(fn).parameters)[:2]
+    kw[first], kw[second] = kw.pop("input"), kw.pop("output")
+    return fn(**kw)
+
+
+def check_differences(a, b, tol: float, where: str = "") -> list:
+    """Keys where two verifier results differ: bools, ints and strings
+    unequal, floats (and lists of them) apart by more than tol."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{where}: keys {sorted(set(a) ^ set(b))}"]
+        return [d for k in a if k not in ("timings", "freqs")
+                for d in check_differences(a[k], b[k], tol, f"{where}.{k}")]
+    if isinstance(a, (bool, np.bool_, int, np.integer, str)):
+        return [] if a == b else [f"{where}: {a} != {b}"]
+    if np.max(np.abs(np.asarray(a, float) - np.asarray(b, float)),
+              initial=0.0) > tol:
+        return [f"{where}: {a} vs {b}"]
+    return []
+
+
+def spectra_differ(pa: str, pb: str, tol: float) -> float:
+    """Largest per-bin difference of two spectrum CSVs over 20 Hz-20 kHz."""
+    a = np.loadtxt(pa, delimiter=",", skiprows=1)
+    b = np.loadtxt(pb, delimiter=",", skiprows=1)
+    band = (a[:, 0] >= 20) & (a[:, 0] <= 20000)
+    d = float(np.max(np.abs(a[band] - b[band])))
+    if not np.array_equal(a[:, 0], b[:, 0]) or d > tol:
+        fail(f"spectrum CSVs {os.path.basename(pa)} and "
+             f"{os.path.basename(pb)} differ by {d} dB (> {tol})")
+    return d
+
+
+def verifier_paths(torch, cuda_ola, standard, ip, lip, lop, lcp,
+                   tmp) -> dict:
+    """Phase 20. ip: the 60 s WAV; lip, lop, lcp: the 10-minute FLAC, its
+    pcm24 output and state CSV (phase 15)."""
+    from tomatis_tpu_torch.cli import main as cli_main
+    from tomatis_tpu_torch.cli import validate as cli_validate
+    from tomatis_tpu_torch.cli import verify_15db as cli_v15
+    from tomatis_tpu_torch.cli import verify_15db_v2 as cli_v2
+    from tomatis_tpu_torch.cli import verify_tilt as cli_tilt
+    from tomatis_tpu_torch.cli._sidecar import write_sidecar
+    from tomatis_tpu_torch.cli.process import sidecar_fields
+    from tomatis_tpu_torch.verify import tilt_amplitude, validate_layer1
+    from tomatis_tpu_torch.verify import verify_15db, verify_15db_v2
+    d = os.path.join(tmp, "verify")
+    os.makedirs(d)
+    sop, scp = os.path.join(d, "std.wav"), os.path.join(d, "std.csv")
+    aop = os.path.join(d, "adapt.wav")
+    launches = {}
+    p = standard.StandardParams()
+    chunks60 = len(chunk_schedule(standard, p, 60 * SR))
+    reset_counts(cuda_ola)
+    rc, _ = quiet_call(cli_main.main, ["process", "-i", ip, "-o", sop,
+                                       "--state_csv", scp, "--device",
+                                       "cuda"])
+    launches["verify_process"] = read_counts(cuda_ola, chunks60,
+                                             "verifiers' process run")
+    reset_counts(cuda_ola)
+    rc_a, _ = quiet_call(cli_main.main, ["process-adaptive", "-i", ip, "-o",
+                                         aop, "--device", "cuda"])
+    launches["verify_adaptive"] = only_chunk_tails(
+        cuda_ola, "verifiers' process-adaptive run")
+    if rc or rc_a or not os.path.exists(sop + ".params.json") \
+            or not os.path.exists(aop + ".params.json"):
+        fail(f"process / process-adaptive for the verifiers: exit {rc} / "
+             f"{rc_a}, or no params sidecar")
+
+    cases = [
+        ("validate", cli_validate, validate_layer1.validate, 1e-3,
+         lambda tag: ["-i", ip, "-o", sop, "--state_csv", scp, "--out_csv",
+                      os.path.join(d, f"l1_{tag}.csv"), "--out_png", ""]),
+        ("verify-15db", cli_v15, verify_15db.verify, 1e-3,
+         lambda tag: ["-i", ip, "-o", sop, "--out_prefix",
+                      os.path.join(d, f"v15_{tag}")]),
+        ("verify-15db-v2", cli_v2, verify_15db_v2.verify_v2, 1e-3,
+         lambda tag: ["-i", ip, "-o", aop, "--out_prefix",
+                      os.path.join(d, f"v2_{tag}")]),
+        ("verify-tilt", cli_tilt, tilt_amplitude.analyze_tilt_amplitude,
+         1e-3, lambda tag: ["-i", ip, "-o", sop]),
+    ]
+    spectrum_of = {"validate": "l1_{}.csv",
+                   "verify-15db": "v15_{}_spectrum.csv",
+                   "verify-15db-v2": "v2_{}_spectrum.csv"}
+    for name, cli, fn, tol, argv in cases:
+        t0 = time.perf_counter()
+        rc, out = quiet_call(cli.main, argv("cli") + ["--device", "cuda"])
+        wall_cli = time.perf_counter() - t0
+        if name != "verify-tilt" and "params loaded from" not in out:
+            fail(f"{name}: the sidecar was not loaded")
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = (verifier_call(cli, fn, argv(dev), dev),
+                        time.perf_counter() - t0)
+        card, cpu = res["cuda"][0], res["cpu"][0]
+        if name == "verify-tilt":
+            card = {k: v for k, v in card.items()
+                    if k not in ("c1_avg", "c2_avg")}
+            cpu = {k: v for k, v in cpu.items()
+                   if k not in ("c1_avg", "c2_avg")}
+            verdict = "c1_tilt" in card
+            ok_rc = rc == 0
+        else:
+            verdict = card["pass"]
+            ok_rc = (rc == 0) == verdict
+            if name == "verify-15db-v2":
+                # the bisection's last steps may part on levels 1e-6 dB
+                # apart (tests/test_torch_verify.py)
+                if abs(card.pop("auto_threshold_dbfs")
+                       - cpu.pop("auto_threshold_dbfs")) > 1e-4:
+                    fail("verify-15db-v2: card and CPU thresholds differ")
+        diffs = check_differences(card, cpu, tol)
+        if diffs or not ok_rc:
+            fail(f"{name}: CLI exit {rc}, card vs CPU differences {diffs}")
+        extra = ""
+        if name in spectrum_of:
+            dmax = spectra_differ(
+                os.path.join(d, spectrum_of[name].format("cuda")),
+                os.path.join(d, spectrum_of[name].format("cpu")), 1e-2)
+            extra = f", spectrum CSVs within {dmax:.2e} dB per bin"
+        how = "" if name == "verify-tilt" else ", sidecar only"
+        log(f"{name} (60 s{how}): CLI on the card exit {rc} in "
+            f"{wall_cli:.3f} s; library call card {res['cuda'][1]:.3f} s, "
+            f"CPU {res['cpu'][1]:.3f} s: verdict "
+            f"{'PASS' if verdict else 'FAIL'} on both, every count and "
+            f"flag equal, metrics within {tol}{extra}")
+
+    # full size: the 10-minute FLAC -> FLAC pcm24 output of phase 15
+    write_sidecar(lop, "process", sidecar_fields(p))
+    for name, cli, fn, argv in (
+            ("validate", cli_validate, validate_layer1.validate,
+             ["-i", lip, "-o", lop, "--state_csv", lcp, "--out_csv",
+              os.path.join(d, "long_l1.csv"), "--out_png", ""]),
+            ("verify-15db", cli_v15, verify_15db.verify,
+             ["-i", lip, "-o", lop, "--out_prefix",
+              os.path.join(d, "long_v15")])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = verifier_call(cli, fn, argv, "cuda")
+        wall = time.perf_counter() - t0
+        sp = r["checks"]["spectrum"]
+        log(f"{name} full size (10-minute FLAC to FLAC pcm24 output, state "
+            f"CSV, sidecar): verdict {'PASS' if r['pass'] else 'FAIL'}, "
+            f"stable frames C1 {sp['c1_frames']} / C2 {sp['c2_frames']}, "
+            f"wall {wall:.3f} s, split "
+            f"{ {k: round(v, 3) for k, v in r['timings'].items()} }, peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} "
+            f"GB, of which {held / 1e9:.3f} GB earlier phases still held")
+    return launches
+
+
+def case_study_path(cuda_ola, tmp) -> dict:
+    """Phase 21: the calibration case study, 40 s, on the card."""
+    from tomatis_tpu_torch.verify.case_study import TRUE, run_case_study
+    reset_counts(cuda_ola)
+    t0 = time.perf_counter()
+    r, _ = quiet_call(run_case_study, os.path.join(tmp, "case"), 40.0, 7,
+                      "cuda")
+    wall = time.perf_counter() - t0
+    c = only_chunk_tails(cuda_ola, "case study")
+    err = r["errors"]
+    gain_err = abs(r["compare"]["anchor_gain_db"] - TRUE["gain_db"])
+    if not (err["threshold_db"] < 0.6 and err["hyst_db"] < 0.01
+            and err["gain_db"] < 1.0 and err["delay_s"] < 0.03
+            and r["validate_pass"] and gain_err < 0.5):
+        fail(f"case study outside tests/test_case_study.py's tolerances: "
+             f"errors {err}, validate_pass {r['validate_pass']}, anchor "
+             f"gain {r['compare']['anchor_gain_db']}")
+    log(f"case study (40 s, calibrate-v2 -> process --calibration -> "
+        f"validate -> compare on the card): errors {err}, validate PASS, "
+        f"anchor gain {r['compare']['anchor_gain_db']:.3f} dB (truth "
+        f"{TRUE['gain_db']}), {c['chunk_tail']} chunk-tail launches, wall "
+        f"{wall:.3f} s")
+    return {"case_study": c}
+
+
+def analyzer_paths(ip, op, cp, tmp):
+    """Phase 22: the ten analyzer commands on the 60 s files. Only
+    analyze-stereo runs torch ops: it runs on the card and on the CPU and
+    its CSVs must be equal; the host-only commands run twice and must
+    print and write the same."""
+    from tomatis_tpu_torch.cli import main as cli_main
+    d = os.path.join(tmp, "analyzers")
+
+    def both(cmd, argv_of, files=()):
+        runs = []
+        for tag in ("cuda", "cpu"):
+            od = os.path.join(d, tag)
+            os.makedirs(od, exist_ok=True)
+            t0 = time.perf_counter()
+            rc, text = quiet_call(cli_main.main, [cmd] + argv_of(od, tag))
+            runs.append((rc, text.replace(od, "<dir>"),
+                         [open(os.path.join(od, f), "rb").read()
+                          for f in files], time.perf_counter() - t0))
+        (rc_a, out_a, f_a, t_a), (rc_b, out_b, f_b, t_b) = runs
+        if rc_a or rc_b or out_a != out_b or f_a != f_b:
+            fail(f"{cmd}: exits {rc_a}/{rc_b}, console or files differ "
+                 f"between its two runs:\n{out_a[-800:]}\n{out_b[-800:]}")
+        first = out_a.strip().splitlines()[0] if out_a.strip() else ""
+        log(f"{cmd}: exit 0 twice ({t_a:.3f} s, {t_b:.3f} s), the same "
+            f"console and {len(files)} file(s) byte for byte; {first[:100]}")
+
+    both("analyze-stereo", lambda od, t: ["-i", ip, "-o",
+                                          os.path.join(od, "st.csv"),
+                                          "--device", t], ["st.csv"])
+    both("analyze-dbfs", lambda od, t: ["-i", ip])
+    both("compare-dbfs", lambda od, t: ["-i", ip, "-c", op, "--out_prefix",
+                                        os.path.join(od, "dbfs")],
+         ["dbfs_out.csv"])
+    both("analyze-gate-threshold",
+         lambda od, t: [os.path.join(d, "cuda", "dbfs_out.csv")])
+    both("merge-state-volume", lambda od, t: ["--state_csv", cp, "--audio",
+                                              op, "-o", os.path.join(
+                                                  od, "merged.csv")],
+         ["merged.csv"])
+    both("inspect", lambda od, t: ["-i", ip, "--print_sec", "5"])
+    both("inspect-transition", lambda od, t: ["-i", ip])
+    both("find-segment", lambda od, t: ["-i", ip, "--min_seg_sec", "10"])
+    both("find-start", lambda od, t: ["-i", ip])
+    both("find-end", lambda od, t: ["-i", ip])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1865,9 +2158,18 @@ def main() -> int:
     # -- 18. process-batch ---------------------------------------------------
     batched = check_batched_tail(torch, cuda_ola)
     launches.update(batch_path(torch, cuda_ola, audio, standard, x, tmp))
+
+    # -- 19-22. doctor, verifiers, case study, analyzers --------------------
+    launches.update(doctor_path(cuda_ola))
+    launches.update(verifier_paths(
+        torch, cuda_ola, standard, ip, os.path.join(tmp, "long.flac"),
+        os.path.join(tmp, "long_pcm24.flac"),
+        os.path.join(tmp, "long_pcm24.csv"), tmp))
+    launches.update(case_study_path(cuda_ola, tmp))
+    analyzer_paths(ip, op, cp, tmp)
     tmp_dir.cleanup()
 
-    # -- 19. result ----------------------------------------------------------
+    # -- 23. result ----------------------------------------------------------
     replaces = {"chunk_tail_batched": "tomatis_tpu/ops/pallas_ola.py:75 "
                 "under jax.vmap (tomatis_tpu/parallel/batch.py:272)"}
     kernels = [dict(name=name, route="cuda",

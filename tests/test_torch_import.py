@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_reference():
                        capture_output=True, text=True, timeout=120, env=env)
     assert r.returncode == 0, r.stderr[-2000:]
     n = int(r.stdout.split("IMPORTED")[1])
-    assert n >= 54   # every module of every sub-package was imported
+    assert n >= 69   # every module of every sub-package was imported
 
 
 def test_new_modules_import_no_jax_and_no_reference():
@@ -70,6 +70,28 @@ def test_eq_adaptive_analysis_modules_import_no_jax_no_pandas():
             "for m in %r]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tomatis_tpu', 'pandas')); "
+            "assert not bad, bad" % (REPO, mods))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_verifier_and_analyzer_modules_import_no_jax_no_pandas():
+    """The verifiers, the level and segment analyzers, doctor and their
+    commands, imported on their own in a fresh interpreter: no jax,
+    nothing of the JAX package, no pandas, and no matplotlib until a plot
+    is drawn."""
+    mods = ["verify.validate_layer1", "verify.verify_15db",
+            "verify.verify_15db_v2", "verify.tilt_amplitude",
+            "verify.case_study", "analysis.levels", "analysis.segments",
+            "cli._sidecar", "cli.validate", "cli.verify_15db",
+            "cli.verify_15db_v2", "cli.verify_tilt", "cli.doctor",
+            "cli.analyzers", "cli.main"]
+    code = ("import sys; sys.path.insert(0, %r); import importlib; "
+            "[importlib.import_module('tomatis_tpu_torch.' + m) "
+            "for m in %r]; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tomatis_tpu', 'pandas', 'matplotlib')); "
             "assert not bad, bad" % (REPO, mods))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)

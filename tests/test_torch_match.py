@@ -303,15 +303,21 @@ def test_cli_appliers_and_adaptive(files, reports, capsys):
 
 
 def test_cli_lists_thirteen_commands(capsys):
-    """Every ported command, process-batch included: fourteen."""
+    """Every ported command: the fourteen of the processors, the appliers,
+    the repair tools and match, then the verifiers, the analyzers and
+    doctor, 29 in all."""
     assert cli_main.main(["--help"]) == 0
     out = capsys.readouterr().out
     for cmd in ("process", "process-xfade", "convert", "process-adaptive",
                 "apply-eq", "apply-residual-eq", "declick", "cut",
                 "compare", "analyze-eq", "calibrate", "calibrate-v2",
-                "match", "process-batch"):
+                "match", "process-batch", "validate", "verify-15db",
+                "verify-15db-v2", "verify-tilt", "doctor", "analyze-dbfs",
+                "analyze-gate-threshold", "analyze-stereo", "compare-dbfs",
+                "merge-state-volume", "inspect", "inspect-transition",
+                "find-segment", "find-start", "find-end"):
         assert f"\n  {cmd} " in out, cmd
-    assert len(cli_main.COMMANDS) == 14
+    assert len(cli_main.COMMANDS) == 29
 
 
 def test_cli_default_device_fails_without_card(files, capsys):

@@ -2,9 +2,14 @@
 `python -m tomatis_tpu_torch.cli.main <command> ...`.
 
 The three processors, the batch processor, the EQ appliers, the repair
-tools and the device-matching workflow with its analysis commands are
-ported; the other commands of tomatis_tpu/cli/main.py are queued in
-ROADMAP.md.
+tools, the device-matching workflow with its analysis commands, the
+verifiers, the level and segment analyzers and doctor are ported: 29 of
+the 35 commands of tomatis_tpu/cli/main.py. The six still queued in
+ROADMAP.md are compare-baseline, compare-three, compare-diff-spectrum,
+plot-diff, reverse-engineer and process-sharded.
+
+An entry is (module, help) and the module's main() runs, or (module,
+help, function) and that function runs, as in the reference's table.
 """
 from __future__ import annotations
 
@@ -42,6 +47,43 @@ COMMANDS = {
               "residual EQ"),
     "convert": ("tomatis_tpu_torch.cli.convert",
                 "convert audio between WAV and FLAC"),
+    "validate": ("tomatis_tpu_torch.cli.validate",
+                 "layer-1 validation (gate recomputation, filter shape, "
+                 "engineering)"),
+    "verify-15db": ("tomatis_tpu_torch.cli.verify_15db",
+                    "full +-15 dB verification suite"),
+    "verify-15db-v2": ("tomatis_tpu_torch.cli.verify_15db_v2",
+                       "adaptive-mode verification (auto threshold)"),
+    "verify-tilt": ("tomatis_tpu_torch.cli.verify_tilt",
+                    "measure realized tilt amplitude by level grouping"),
+    "doctor": ("tomatis_tpu_torch.cli.doctor",
+               "verify the runtime environment end to end"),
+    "analyze-dbfs": ("tomatis_tpu_torch.cli.analyzers",
+                     "RMS dBFS distribution / gate_ui suggestions",
+                     "dbfs_main"),
+    "analyze-gate-threshold": ("tomatis_tpu_torch.cli.analyzers",
+                               "estimate device gate threshold from "
+                               "dBFS CSVs", "gate_threshold_main"),
+    "analyze-stereo": ("tomatis_tpu_torch.cli.analyzers",
+                       "per-channel threshold + min-hold gate CSV",
+                       "stereo_main"),
+    "compare-dbfs": ("tomatis_tpu_torch.cli.analyzers",
+                     "align recordings and emit frame-dBFS track CSVs",
+                     "compare_dbfs_main"),
+    "merge-state-volume": ("tomatis_tpu_torch.cli.analyzers",
+                           "join state CSV with per-channel dBFS",
+                           "merge_main"),
+    "inspect": ("tomatis_tpu_torch.cli.analyzers",
+                "amplitude profile with ASCII bars + plot", "inspect_main"),
+    "inspect-transition": ("tomatis_tpu_torch.cli.analyzers",
+                           "100ms dBFS table of a window",
+                           "transition_main"),
+    "find-segment": ("tomatis_tpu_torch.cli.analyzers",
+                     "find the main music segment", "find_segment_main"),
+    "find-start": ("tomatis_tpu_torch.cli.analyzers",
+                   "smart music-start detection", "find_start_main"),
+    "find-end": ("tomatis_tpu_torch.cli.analyzers",
+                 "smart music-end detection", "find_end_main"),
 }
 
 
@@ -50,14 +92,17 @@ def main(argv=None) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m tomatis_tpu_torch.cli.main <command> "
               "[options]\n\ncommands:")
-        for name, (_, doc) in sorted(COMMANDS.items()):
-            print(f"  {name:24s} {doc}")
+        for name, spec in sorted(COMMANDS.items()):
+            print(f"  {name:24s} {spec[1]}")
         return 0
     cmd = argv[0]
     if cmd not in COMMANDS:
         print(f"unknown command: {cmd!r} (see --help)")
         return 2
-    return importlib.import_module(COMMANDS[cmd][0]).main(argv[1:])
+    spec = COMMANDS[cmd]
+    mod = importlib.import_module(spec[0])
+    entry = getattr(mod, spec[2]) if len(spec) > 2 else mod.main
+    return entry(argv[1:])
 
 
 if __name__ == "__main__":

@@ -54,6 +54,20 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def sidecar_fields(p) -> dict:
+    """The resolved StandardParams as the verifiers' flags: the sidecar
+    that `process` writes next to its output."""
+    from tomatis_tpu_torch.cli._sidecar import linear_gate
+    return dict(
+        **linear_gate(p.gate_ui, p.threshold_dbfs()),
+        gate_mode=p.gate_mode, dynamic_range=p.dynamic_range,
+        hyst_db=p.hysteresis_db, up_delay_ms=p.up_delay_ms,
+        fc=p.fc, slope=p.slope,
+        c1_low=p.c1_low, c1_high=p.c1_high,
+        c2_low=p.c2_low, c2_high=p.c2_high,
+        n_fft=p.n_fft, hop=p.hop, output_gain_db=p.output_gain_db)
+
+
 def run(args) -> int:
     from tomatis_tpu_torch.models.standard import StandardParams, process
     cal = {}
@@ -107,15 +121,8 @@ def run(args) -> int:
     print(f"frames: {stats['n_frames']}  "
           f"C1: {stats['c1_frames']} ({100 * stats['c1_frames'] / n:.1f}%)  "
           f"C2: {stats['c2_frames']} ({100 * stats['c2_frames'] / n:.1f}%)")
-    from tomatis_tpu_torch.cli._sidecar import linear_gate, write_sidecar
-    write_sidecar(args.output, "process", dict(
-        **linear_gate(p.gate_ui, p.threshold_dbfs()),
-        gate_mode=p.gate_mode, dynamic_range=p.dynamic_range,
-        hyst_db=p.hysteresis_db, up_delay_ms=p.up_delay_ms,
-        fc=p.fc, slope=p.slope,
-        c1_low=p.c1_low, c1_high=p.c1_high,
-        c2_low=p.c2_low, c2_high=p.c2_high,
-        n_fft=p.n_fft, hop=p.hop, output_gain_db=p.output_gain_db))
+    from tomatis_tpu_torch.cli._sidecar import write_sidecar
+    write_sidecar(args.output, "process", sidecar_fields(p))
     print(f"output: {stats['out_path']} ({stats['total']} samples)")
     print(f"wall: {stats['wall_seconds']:.2f}s "
           f"({stats['realtime_factor']:.1f}x realtime on {stats['device']})")
