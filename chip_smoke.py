@@ -9,11 +9,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
     and prints each kernel's registers and spills (-Xptxas -v); the host
     C++ compiler builds csrc/flac.cpp and csrc/wire.cpp beside it;
  3. kernels vs plain: each entry point of csrc/ola.cu against its plain
-    PyTorch version on the card: the standalone overlap-add at five
-    shapes, the fused chunk tail bit for bit in every output at the main
-    path's shapes and its edge cases; CUDA-event times of each kernel,
-    its plain version and the library call beside the byte bound, and
-    of the unfused chunk tail the fused kernel replaced;
+    PyTorch version on the card: the standalone overlap-add at nine
+    shapes (the sharded path's [256, 2, 4096] and [256, 1, 4096] and the
+    CPU tests' [23, C, 1024] among them), the fused chunk tail bit for
+    bit in every output at the main path's shapes and its edge cases;
+    CUDA-event times of each kernel, its plain version and the library
+    call beside the byte bound and a copy of the same bytes (the
+    overlap-add at the shard shapes and at production), and of the
+    unfused chunk tail the fused kernel replaced;
  4. main path: process_array (default StandardParams, 48 kHz stereo,
     n_fft 4096, hop 2048, 1024 frames per chunk, pcm24, ramp on) over a
     synthetic programme of M minutes from the seed, twice (cold, then
@@ -125,7 +128,35 @@ Phases, each fatal on failure (exit code != 0, no result line):
 22. analyzers: the ten analyzer commands on the 60 s files;
     analyze-stereo on the card and on the CPU writes the same CSV bytes,
     the host-only commands run twice and print and write the same;
-23. prints the card line, the kernels JSON line and, last, the result
+23. process-sharded at full size: the M-minute programme as a 48 kHz
+    stereo PCM_24 WAV through process_sharded (default StandardParams,
+    frames_per_shard 256, a 4-shard mesh on the one card,
+    devices=[cuda:0]*4): output WAV and state CSV equal to the
+    single-device `process` run's bytes, mesh {"data": 1, "seq": 4}, two
+    overlap_add_cuda launches per shard and super-chunk and no chunk-tail
+    launch; wall, realtime factor and split (read, step, write) beside
+    the single-device wall, peak device memory;
+24. the sharded variants and the CLI on the 60 s WAV: xfade (gate_ui 60,
+    xfade_ms 200) within 1 PCM_24 LSB of xfade.process on under 1% of
+    samples with agreeing state CSV rows, adaptive within 1 LSB of
+    adaptive.process with the same threshold, attenuation, switch count
+    and state CSV, and `process-sharded` with no --devices (one shard per
+    card) equal to `process`;
+25. sharded resume: a checkpointed 4-shard run stopped by its sink after
+    two snapshots, a rerun on 2 shards refused, the rerun on 4 equal to
+    the uninterrupted bytes;
+26. process-batch devices=[cuda:0]*2: three of phase 18's FLAC lanes in
+    two lane blocks (padded to 4 lanes), one batched launch per block and
+    chunk, every lane byte-equal to its devices=None run;
+27. compare-baseline, compare-three, compare-diff-spectrum and plot-diff
+    on the 60 s input and its `process` output, and reverse-engineer: the
+    commands on the card, then the library calls on the card and on the
+    CPU (reverse-engineer on tests/test_reverse.py's signal, 60 s, and
+    its rendition on the card): equal delays, frame counts and counts,
+    bands, music_err,
+    noise_delta, CSV rows and the threshold estimate within 1e-3 dB; which
+    PNGs were written (none where matplotlib does not import);
+28. prints the card line, the kernels JSON line and, last, the result
     line {"ok": true, "device": {...}}. Each path is driven with the
     launch counts set to 0 just before it and read just after:
     `launches_by_path` holds those readings, `launches` their sum.
@@ -266,9 +297,14 @@ def programme(seconds: float, seed: int) -> np.ndarray:
 
 
 def check_ola(torch, cuda_ola):
-    """Kernel vs plain at the main path's shapes; times at production."""
+    """Kernel vs plain at the main path's shapes; times at production and
+    at the sharded path's shard shapes."""
     shapes = [(1024, 2, 4096, 2048),   # production frames, K=2
               (1024, 1, 4096, 2048),   # the normaliser
+              (256, 2, 4096, 2048),    # a process-sharded shard's frames
+              (256, 1, 4096, 2048),    # ... and its window weights
+              (23, 2, 1024, 512),      # the CPU tests' shard: no tile fits
+              (23, 1, 1024, 512),
               (29, 2, 4096, 1024),     # K=4
               (12, 2, 384, 128),       # K=3, odd F
               (1, 2, 256, 128)]
@@ -289,38 +325,50 @@ def check_ola(torch, cuda_ola):
         worst = max(worst, err)
         log(f"ola {(F, C, n_fft, hop)}: max|d| {err:.3e} (tol {tol:.3e})")
 
-    F, C, n_fft, hop = shapes[0]
-    L = (F - 1) * hop + n_fft
-    y = torch.randn((F, C, n_fft), generator=gen, device="cuda")
-    ms = time_ms(torch, lambda: cuda_ola.overlap_add_cuda(y, hop))
-    plain_ms = time_ms(torch, lambda: cuda_ola.overlap_add_plain(y, hop))
-    # library yardstick: col2im with kernel (1, n_fft), stride (1, hop) is
-    # the same overlap-add, on fold's own channel-major layout
-    yf = y.permute(1, 2, 0).reshape(1, C * n_fft, F).contiguous()
+    def timed(F, C, n_fft, hop):
+        L = (F - 1) * hop + n_fft
+        y = torch.randn((F, C, n_fft), generator=gen, device="cuda")
+        # library yardstick: col2im with kernel (1, n_fft), stride (1, hop)
+        # is the same overlap-add, on fold's own channel-major layout
+        yf = y.permute(1, 2, 0).reshape(1, C * n_fft, F).contiguous()
 
-    def fold():
-        return torch.nn.functional.fold(yf, output_size=(1, L),
-                                        kernel_size=(1, n_fft),
-                                        stride=(1, hop))
-    ref = cuda_ola.overlap_add_plain(y, hop)
-    f_err = float((fold()[0, :, 0, :].T - ref).abs().max())
-    if f_err > 1e-5:
-        fail(f"fold yardstick disagrees with the plain OLA: {f_err}")
-    library_ms = time_ms(torch, fold)
-    w = torch.rand((F, 1, n_fft), generator=gen, device="cuda")
-    norm_ms = time_ms(torch, lambda: cuda_ola.overlap_add_cuda(w, hop))
-    read_b, write_b = F * C * n_fft * 4, L * C * 4
-    bound_ms = (read_b + write_b) / HBM_BYTES_PER_S * 1e3
-    log(f"ola production {(F, C, n_fft, hop)}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, F.fold {library_ms:.4f} ms; normaliser "
-        f"{(F, 1, n_fft, hop)} kernel {norm_ms:.4f} ms")
-    log(f"ola bytes per production launch: {read_b / 1e6:.1f} MB read + "
-        f"{write_b / 1e6:.1f} MB written = {(read_b + write_b) / 1e6:.1f} MB;"
-        f" bound {bound_ms:.4f} ms at 3.35 TB/s (H100 SXM HBM3, data sheet);"
-        f" a copy moving as many bytes {copy_ms(torch, read_b + write_b):.4f}"
-        f" ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, library_ms=library_ms)
+        def fold():
+            return torch.nn.functional.fold(yf, output_size=(1, L),
+                                            kernel_size=(1, n_fft),
+                                            stride=(1, hop))
+        ref = cuda_ola.overlap_add_plain(y, hop)
+        f_err = float((fold()[0, :, 0, :].T - ref).abs().max())
+        if f_err > 1e-5:
+            fail(f"fold yardstick disagrees with the plain OLA: {f_err}")
+        ms, plain_ms, library_ms = time_turns(torch, [
+            lambda: cuda_ola.overlap_add_cuda(y, hop),
+            lambda: cuda_ola.overlap_add_plain(y, hop), fold])
+        read_b, write_b = F * C * n_fft * 4, L * C * 4
+        r = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=(read_b + write_b) / HBM_BYTES_PER_S * 1e3,
+                 copy_ms=copy_ms(torch, read_b + write_b))
+        log(f"ola {(F, C, n_fft, hop)}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.fold {library_ms:.4f} ms; "
+            f"{read_b / 1e6:.2f} MB read + {write_b / 1e6:.2f} MB written, "
+            f"bound {r['bound_ms']:.4f} ms at 3.35 TB/s (H100 SXM HBM3, data "
+            f"sheet), {100 * r['bound_ms'] / ms:.0f}% of it; a copy moving "
+            f"as many bytes {r['copy_ms']:.4f} ms")
+        return r
+
+    # the shard shapes first: the sharded path is the kernel's main path
+    shard = timed(256, 2, 4096, 2048)
+    weights = timed(256, 1, 4096, 2048)
+    prod = timed(1024, 2, 4096, 2048)
+    norm = timed(1024, 1, 4096, 2048)
+    log("ola at the shard shapes: at 8-13 MB a launch the fixed cost of a "
+        "launch (grid fill and drain, the first bytes' latency) is most of "
+        "the time; compare each with the copy of the same bytes beside it")
+    return dict(max_abs_err=worst, ms=shard["ms"], plain_ms=shard["plain_ms"],
+                bound_ms=shard["bound_ms"], library_ms=shard["library_ms"],
+                copy_ms=shard["copy_ms"], shape="[256, 2, 4096] hop 2048",
+                other_shapes={"[256, 1, 4096] hop 2048": weights,
+                              "[1024, 2, 4096] hop 2048": prod,
+                              "[1024, 1, 4096] hop 2048": norm})
 
 
 def unfused_tail(cuda_ola, **kw):
@@ -1848,6 +1896,447 @@ def analyzer_paths(ip, op, cp, tmp):
     both("find-end", lambda od, t: ["-i", ip])
 
 
+def read_sharded_counts(cuda_ola, super_chunks: int, n_seq: int,
+                        what: str) -> dict:
+    """The launch counts just after a sharded path: two standalone
+    overlap-add launches per shard and super-chunk (the frames' and the
+    window weights'), nothing else."""
+    c = counts_of(cuda_ola)
+    want = 2 * n_seq * super_chunks
+    if want == 0 or c != {"chunk_tail": 0, "overlap_add": want,
+                          "chunk_tail_batched": 0}:
+        fail(f"{what}: launches {c}, expected {want} overlap-add launches "
+             f"(2 x {n_seq} shards x {super_chunks} super-chunks) only")
+    return c
+
+
+def lsb_apart(audio, a: str, b: str, what: str) -> float:
+    """Fails unless two PCM_24 files are within 1 LSB on under 1% of
+    their samples; returns that share."""
+    pa, pb = pcm_of(audio, a), pcm_of(audio, b)
+    if pa.shape != pb.shape:
+        fail(f"{what}: shapes {pa.shape} and {pb.shape}")
+    d = np.abs(pa - pb)
+    share = float((d > 0).mean())
+    if d.max() > 1 or share >= 0.01:
+        fail(f"{what}: max {d.max()} LSB apart on {100 * share:.3f}% of "
+             f"the samples (1 LSB on under 1% allowed)")
+    return share
+
+
+def csv_rows_agree(a: str, b: str, what: str) -> bool:
+    """The crossfade state CSVs of two runs: frame, time, level and state
+    equal, alpha (printed %.3f) within 0.001. Returns whether the files
+    are byte-equal as well."""
+    ra, rb = open(a).read().splitlines(), open(b).read().splitlines()
+    if len(ra) != len(rb) or ra[0] != rb[0]:
+        fail(f"{what}: {len(ra)} and {len(rb)} rows")
+    for x, y in zip(ra[1:], rb[1:]):
+        cx, cy = x.split(","), y.split(",")
+        if cx[:4] != cy[:4] or abs(float(cx[4]) - float(cy[4])) > 0.001:
+            fail(f"{what}: rows {x!r} and {y!r} differ")
+    return ra == rb
+
+
+def sharded_paths(torch, cuda_ola, audio, standard, x, ip, op, cp,
+                  tmp) -> dict:
+    """Phases 23-25: process-sharded on the card. x: the long programme;
+    ip, op, cp: the 60 s WAV, its `process` output and state CSV (phase
+    5)."""
+    from tomatis_tpu_torch.cli import main as cli_main
+    from tomatis_tpu_torch.engine.checkpoint import CheckpointManager
+    from tomatis_tpu_torch.models import adaptive, xfade
+    from tomatis_tpu_torch.parallel.stream import (process_sharded,
+                                                   process_sharded_adaptive)
+    d = os.path.join(tmp, "sharded")
+    os.makedirs(d)
+    card4 = [torch.device("cuda", 0)] * 4
+    fps = 256
+    p = standard.StandardParams()
+    launches = {}
+
+    # -- 23. full size: the 10-minute programme, WAV to WAV
+    lip = os.path.join(d, "long.wav")
+    t0 = time.perf_counter()
+    audio.write(lip, x, SR, subtype="PCM_24")
+    log(f"sharded: the {len(x) / SR:.0f} s programme written as a 48 kHz "
+        f"stereo PCM_24 WAV in {time.perf_counter() - t0:.3f} s")
+    sop, scp = os.path.join(d, "single.wav"), os.path.join(d, "single.csv")
+    hop_, hcp = os.path.join(d, "shard.wav"), os.path.join(d, "shard.csv")
+    sst = standard.process(lip, sop, p, state_csv_path=scp, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts(cuda_ola)
+    hst = process_sharded(lip, hop_, p, frames_per_shard=fps,
+                          state_csv_path=hcp, devices=card4)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    n_super = -(-hst["n_frames"] // (fps * 4))
+    launches["sharded_standard"] = read_sharded_counts(
+        cuda_ola, n_super, 4, "process-sharded, 10 minutes")
+    if hst["mesh"] != {"data": 1, "seq": 4}:
+        fail(f"process-sharded mesh {hst['mesh']}")
+    if not files_equal(hop_, sop) or not files_equal(hcp, scp):
+        fail("process-sharded on 4 shards: the WAV or the state CSV "
+             "differs from the single-device process run's bytes")
+    log(f"process-sharded full size ({len(x) / SR / 60:.0f}-minute WAV to "
+        f"WAV, StandardParams, "
+        f"frames_per_shard {fps}, devices=[cuda:0]*4, mesh {hst['mesh']}): "
+        f"output WAV and state CSV equal the single-device process run's "
+        f"byte for byte; {hst['n_frames']} frames in {n_super} super-chunks, "
+        f"{launches['sharded_standard']['overlap_add']} overlap-add launches "
+        f"(2 x 4 shards x {n_super}), no chunk-tail launch; wall "
+        f"{hst['wall_seconds']:.3f} s, realtime factor "
+        f"{hst['realtime_factor']:.2f}x, split {hst['timings']} (read: the "
+        f"input window; step: upload, framing, the sharded step and the "
+        f"emit's readback; write: CSV rows, flush cuts, WAV writes); the "
+        f"single-device process run: wall {sst['wall_seconds']:.3f} s, "
+        f"realtime factor {sst['realtime_factor']:.2f}x; peak device "
+        f"memory {peak / 1e9:.3f} GB, of which {held / 1e9:.3f} GB held "
+        f"before the run")
+
+    # -- 24. the crossfade and adaptive variants and the CLI, 60 s WAV
+    px = xfade.XfadeParams(gate_ui=60.0, xfade_ms=200.0)
+    xop, xcp = os.path.join(d, "xf.wav"), os.path.join(d, "xf.csv")
+    hxop, hxcp = os.path.join(d, "xf_sh.wav"), os.path.join(d, "xf_sh.csv")
+    xfade.process(ip, xop, px, state_csv_path=xcp, device="cuda")
+    reset_counts(cuda_ola)
+    hx = process_sharded(ip, hxop, px, frames_per_shard=fps,
+                         state_csv_path=hxcp, variant="xfade",
+                         devices=card4)
+    launches["sharded_xfade"] = read_sharded_counts(
+        cuda_ola, -(-hx["n_frames"] // (fps * 4)), 4,
+        "process-sharded xfade, 60 s")
+    share = lsb_apart(audio, hxop, xop, "process-sharded xfade")
+    same_csv = csv_rows_agree(hxcp, xcp, "process-sharded xfade state CSV")
+    log(f"process-sharded xfade (60 s, gate_ui 60, xfade_ms 200, 4 shards):"
+        f" within 1 LSB of xfade.process on {100 * share:.4f}% of the "
+        f"samples (equal elsewhere); state CSV rows agree (byte-equal: "
+        f"{same_csv}); {launches['sharded_xfade']['overlap_add']} "
+        f"overlap-add launches; wall {hx['wall_seconds']:.3f} s")
+
+    pa = adaptive.AdaptiveParams()
+    aop, acp = os.path.join(d, "ad.wav"), os.path.join(d, "ad.csv")
+    haop, hacp = os.path.join(d, "ad_sh.wav"), os.path.join(d, "ad_sh.csv")
+    ai = adaptive.process(ip, aop, pa, state_csv_path=acp, device="cuda")
+    reset_counts(cuda_ola)
+    ha = process_sharded_adaptive(ip, haop, pa, frames_per_shard=fps,
+                                  state_csv_path=hacp, devices=card4)
+    launches["sharded_adaptive"] = read_sharded_counts(
+        cuda_ola, -(-ha["n_frames"] // (fps * 4)), 4,
+        "process-sharded adaptive, 60 s")
+    for k in ("optimal_threshold", "atten_db", "switch_count"):
+        if ha[k] != ai[k]:
+            fail(f"process-sharded adaptive {k}: {ha[k]} != {ai[k]}")
+    share = lsb_apart(audio, haop, aop, "process-sharded adaptive")
+    if not files_equal(hacp, acp):
+        fail("process-sharded adaptive: the state CSV differs")
+    log(f"process-sharded adaptive (60 s, 4 shards): threshold "
+        f"{ha['optimal_threshold']:.4f} dBFS, atten {ha['atten_db']:.3f} dB,"
+        f" {ha['switch_count']} switches, all equal to adaptive.process; "
+        f"within 1 LSB on {100 * share:.4f}% of the samples; state CSV "
+        f"equal; {launches['sharded_adaptive']['overlap_add']} overlap-add "
+        f"launches; wall {ha['wall_seconds']:.3f} s")
+
+    cop, ccp = os.path.join(d, "cli.wav"), os.path.join(d, "cli.csv")
+    n_dev = torch.cuda.device_count()
+    reset_counts(cuda_ola)
+    rc, out = quiet_call(cli_main.main, ["process-sharded", "-i", ip, "-o",
+                                         cop, "--state_csv", ccp])
+    if rc != 0 or f"mesh: data=1 seq={n_dev}" not in out:
+        fail(f"process-sharded CLI: exit {rc}\n{out[-800:]}")
+    n_frames = int(re.search(r"frames: (\d+)", out).group(1))
+    launches["sharded_cli"] = read_sharded_counts(
+        cuda_ola, -(-n_frames // (fps * n_dev)), n_dev,
+        "process-sharded CLI, 60 s")
+    if not files_equal(cop, op) or not files_equal(ccp, cp):
+        fail("process-sharded CLI: output or state CSV differs from "
+             "process's (phase 5)")
+    log(f"process-sharded CLI (60 s, no --devices: {n_dev} shard(s) on "
+        f"this machine's {n_dev} card(s)): exit 0, output and state CSV "
+        f"equal process's byte for byte, "
+        f"{launches['sharded_cli']['overlap_add']} overlap-add launches")
+
+    # -- 25. resume: stopped by the sink after two snapshots, then rerun
+    class SinkStopped(Exception):
+        pass
+
+    ck = os.path.join(d, "ck.npz")
+    rop, rcp = os.path.join(d, "res.wav"), os.path.join(d, "res.csv")
+    kw = dict(frames_per_shard=64, state_csv_path=rcp, checkpoint_path=ck,
+              checkpoint_every=1)
+    saves = [0]
+    save, write = CheckpointManager.maybe_save, standard._RawWav.write
+
+    def counting_save(self, state, force=False):
+        r = save(self, state, force)
+        saves[0] += int(bool(r))
+        return r
+
+    def stop_after_two(self, data):
+        if saves[0] >= 2:
+            raise SinkStopped()
+        return write(self, data)
+
+    CheckpointManager.maybe_save = counting_save
+    standard._RawWav.write = stop_after_two
+    try:
+        process_sharded(ip, rop, p, devices=card4, **kw)
+    except SinkStopped:
+        pass
+    else:
+        fail("sharded resume: the sink's exception did not stop the run")
+    finally:
+        CheckpointManager.maybe_save = save
+        standard._RawWav.write = write
+    if not os.path.exists(ck):
+        fail("sharded resume: no checkpoint after the stop")
+    try:
+        process_sharded(ip, rop, p, devices=card4[:2], **kw)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("sharded resume: a rerun on a 2-shard mesh was not refused")
+    reset_counts(cuda_ola)
+    rst = process_sharded(ip, rop, p, devices=card4, **kw)
+    total_super = -(-rst["n_frames"] // (64 * 4))
+    launches["sharded_resume"] = read_sharded_counts(
+        cuda_ola, total_super - 2, 4, "sharded resume")
+    if os.path.exists(ck) or not files_equal(rop, op) \
+            or not files_equal(rcp, cp):
+        fail("sharded resume: the checkpoint was left behind, or the "
+             "output or state CSV differs from the uninterrupted bytes")
+    log(f"sharded resume (60 s, 64 frames per shard x 4): stopped by the "
+        f"sink after 2 of {total_super} super-chunks, a rerun on 2 shards "
+        f"refused ({refused[:60]!r}), resumed with {total_super - 2} left "
+        f"({launches['sharded_resume']['overlap_add']} overlap-add "
+        f"launches): output and state CSV equal the uninterrupted bytes")
+    return launches
+
+
+def batch_devices_path(torch, cuda_ola, standard, tmp) -> dict:
+    """Phase 26: three FLAC lanes of phase 18 on devices=[cuda:0]*2 (two
+    lane blocks, padded to 4 lanes), each lane against its devices=None
+    run of phase 18 (B = 4)."""
+    from tomatis_tpu_torch.parallel import batch
+    p = standard.StandardParams()
+    d = os.path.join(tmp, "batch_devices")
+    os.makedirs(d)
+    ref = os.path.join(tmp, "batch_b4")
+    jobs = [(os.path.join(tmp, f"lane{j}.flac"),
+             os.path.join(d, f"out{j}.flac")) for j in range(3)]
+    csvs = [os.path.join(d, f"st{j}.csv") for j in range(3)]
+    reset_counts(cuda_ola)
+    t0 = time.perf_counter()
+    stats = batch.process_batch(jobs, p, state_csv_paths=csvs,
+                                devices=[torch.device("cuda", 0)] * 2)
+    wall = time.perf_counter() - t0
+    lt = dict(batch.LAST_TIMINGS)
+    c = counts_of(cuda_ola)
+    by = dict(cuda_ola.chunk_tail_batched_cuda.by_variant)
+    want = 2 * lt["chunks"]
+    if c != {"chunk_tail": 0, "overlap_add": 0, "chunk_tail_batched": want} \
+            or by != {("eps", "pcm24", 2): want} \
+            or lt["block_launches"] != [lt["chunks"]] * 2:
+        fail(f"process-batch --devices: launches {c}, variants {by}, "
+             f"block launches {lt['block_launches']} over {lt['chunks']} "
+             f"batch chunks (expected one batched launch per block and "
+             f"chunk)")
+    for j in range(3):
+        if stats[j]["failed"] is not None or not files_equal(
+                jobs[j][1], os.path.join(ref, f"out{j}.flac")) \
+                or not files_equal(csvs[j], os.path.join(ref, f"st{j}.csv")):
+            fail(f"process-batch --devices: lane {j} differs from its "
+                 f"devices=None run ({stats[j]['failed']})")
+    log(f"process-batch devices=[cuda:0]*2: 3 lanes padded to 4 (one idle),"
+        f" {lt['chunks']} batch chunks, launches per lane block "
+        f"{lt['block_launches']} ({c['chunk_tail_batched']} batched "
+        f"launches in all, no other kernel); every lane's FLAC and state "
+        f"CSV equal its devices=None run's byte for byte; wall {wall:.3f} "
+        f"s, LAST_TIMINGS {lt}")
+    return {"batch_devices": c}
+
+
+def reverse_pair(audio, standard, d: str) -> tuple:
+    """A 60 s input and its rendition by the standard processor on the
+    card, for reverse-engineer: tests/test_reverse.py's signal (AR(1)
+    noise, its level swept across a -32 dBFS linear gate, hysteresis 1
+    dB, no up-delay). The programme's tones, rectified by the power-mono
+    envelope that reverse-engineer analyses, blur its loud frames' tilt
+    below the +5 dB that marks C2, so it gives no threshold estimate."""
+    from scipy.signal import lfilter
+    rng = np.random.default_rng(21)
+    n = 60 * SR
+    t = np.arange(n) / SR
+    noise = lfilter([1.0], [1.0, -0.9], rng.standard_normal(n))
+    noise = noise / np.max(np.abs(noise))
+    env = 0.05 * 10 ** (1.2 * np.sin(2 * np.pi * 0.21 * t) / 2)
+    x = np.clip(np.stack([env * noise, 0.95 * env * noise], 1), -1,
+                1).astype(np.float32)
+    p = standard.StandardParams(gate_mode="linear", gate_ui=50.0,
+                                gate_offset=-82.0, hysteresis_db=1.0,
+                                up_delay_ms=0.0)
+    y, _ = standard.process_array(x, SR, p, device="cuda",
+                                  transport="pcm24")
+    rip, rop = os.path.join(d, "rev_in.wav"), os.path.join(d, "rev_out.wav")
+    audio.write(rip, x, SR, subtype="PCM_24")
+    audio.write(rop, y, SR, subtype="PCM_24")
+    return rip, rop
+
+
+def comparison_paths(audio, standard, ip, op, tmp):
+    """Phase 27: compare-baseline, compare-three, compare-diff-spectrum and
+    plot-diff on the 60 s input and its `process` output, reverse-engineer
+    on reverse_pair's: the five commands on the card, then the library
+    calls on the card and on the CPU."""
+    from tomatis_tpu_torch.analysis import compare_suite as cs
+    from tomatis_tpu_torch.analysis.reverse import analyze_device_params
+    from tomatis_tpu_torch.cli import main as cli_main
+    d = os.path.join(tmp, "compare")
+    cli = os.path.join(d, "cli")
+    os.makedirs(cli)
+    rip, rop = reverse_pair(audio, standard, d)
+    cwd = os.getcwd()
+    os.chdir(cli)      # compare-three writes into the working directory
+    try:
+        for argv in (["compare-baseline", "--baseline", ip, "--candidates",
+                      op, "--outdir", "base", "--max_minutes", "1"],
+                     ["compare-three", "--base", ip, "--cand", op,
+                      "--plot_sec", "60", "--max_sec_spec", "60"],
+                     ["compare-diff-spectrum", "--base", ip, "--cand", op,
+                      "--max_minutes", "1"],
+                     ["plot-diff", "-i", "diff_spectrum.csv"],
+                     ["reverse-engineer", "-i", rip, "-o", rop, "--csv",
+                      "rev.csv"]):
+            t0 = time.perf_counter()
+            rc, out = quiet_call(cli_main.main, argv)
+            if rc != 0:
+                fail(f"{argv[0]}: exit {rc}\n{out[-800:]}")
+            log(f"{argv[0]} on the card: exit 0 in "
+                f"{time.perf_counter() - t0:.3f} s; "
+                f"{out.strip().splitlines()[0][:100]}")
+    finally:
+        os.chdir(cwd)
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        od = os.path.join(d, dev)
+        os.makedirs(od)
+        t0 = time.perf_counter()
+        base = cs.compare_to_baseline(ip, [op], os.path.join(od, "base"),
+                                      max_minutes=1.0, device=dev)[0]
+        os.chdir(od)
+        try:
+            three = cs.compare_three(ip, [op], plot_sec=60.0,
+                                     max_sec_spec=60.0, device=dev)[0]
+        finally:
+            os.chdir(cwd)
+        diff = cs.compare_diff_spectrum(
+            ip, op, max_minutes=1.0, out_csv=os.path.join(od, "diff.csv"),
+            out_png=os.path.join(od, "diff.png"), device=dev)
+        rev = analyze_device_params(rip, rop,
+                                    out_csv=os.path.join(od, "rev.csv"),
+                                    device=dev)
+        res[dev] = dict(base=base, three=three, diff=diff, rev=rev,
+                        wall=time.perf_counter() - t0)
+    card, cpu = res["cuda"], res["cpu"]
+    tol = 1e-3
+    diffs = []
+    b, bc = card["base"], cpu["base"]
+    if b["delay"] != bc["delay"] or b["name"] != bc["name"]:
+        diffs.append(f"compare-baseline delay {b['delay']} / {bc['delay']}")
+    diffs += check_differences(
+        {k: b[k] for k in ("gain_db", "anchor_db", "snr", "stats",
+                           "music_err", "noise_delta", "delta_smooth")},
+        {k: bc[k] for k in ("gain_db", "anchor_db", "snr", "stats",
+                            "music_err", "noise_delta", "delta_smooth")},
+        tol, "compare-baseline")
+    diffs += check_differences(card["three"], cpu["three"], tol,
+                               "compare-three")
+    t, tc = card["diff"], cpu["diff"]
+    if t["delay_samples"] != tc["delay_samples"] \
+            or t["used_frames"] != tc["used_frames"]:
+        diffs.append(f"compare-diff-spectrum delay/frames "
+                     f"{t['delay_samples']}/{t['used_frames']} vs "
+                     f"{tc['delay_samples']}/{tc['used_frames']}")
+    diffs += check_differences(
+        {k: t[k] for k in ("anchor_db", "delta_raw", "delta_smooth")},
+        {k: tc[k] for k in ("anchor_db", "delta_raw", "delta_smooth")},
+        tol, "compare-diff-spectrum")
+    r, rc_ = card["rev"], cpu["rev"]
+    for k in ("delay_samples", "n_frames", "histogram"):
+        if r[k] != rc_[k]:
+            diffs.append(f"reverse-engineer {k}: {r[k]} / {rc_[k]}")
+    if len(r["level_table"]) != len(rc_["level_table"]) \
+            or (r["gate_threshold"] is None) != (rc_["gate_threshold"]
+                                                 is None):
+        diffs.append("reverse-engineer: level table rows or threshold")
+    else:
+        for i, (x, y) in enumerate(zip(r["level_table"],
+                                       rc_["level_table"])):
+            diffs += check_differences(x, y, tol, f"level_table[{i}]")
+        diffs += check_differences(
+            dict(thr=r["gate_threshold"] or {}, levels=r["levels"],
+                 tilts=r["tilts"]),
+            dict(thr=rc_["gate_threshold"] or {}, levels=rc_["levels"],
+                 tilts=rc_["tilts"]), tol, "reverse-engineer")
+    for name, a, c in (("diff.csv", "diff.csv", "diff.csv"),
+                       ("base/diff_out.csv", "base/diff_out.csv",
+                        "base/diff_out.csv"),
+                       ("rev.csv", "rev.csv", "rev.csv")):
+        va = np.loadtxt(os.path.join(d, "cuda", a), delimiter=",",
+                        skiprows=1)
+        vc = np.loadtxt(os.path.join(d, "cpu", c), delimiter=",",
+                        skiprows=1)
+        # rev.csv prints levels and tilts to 0.01
+        lim = 0.0100001 if name == "rev.csv" else tol
+        if va.shape != vc.shape or not np.array_equal(va[:, 0], vc[:, 0]) \
+                or np.max(np.abs(va - vc)) > lim:
+            diffs.append(f"{name}: card and CPU rows differ")
+    three_csv = [f for f in os.listdir(os.path.join(d, "cuda"))
+                 if f.startswith("cmp_diff_")]
+    for f in three_csv:
+        va = np.loadtxt(os.path.join(d, "cuda", f), delimiter=",",
+                        skiprows=1)
+        vc = np.loadtxt(os.path.join(d, "cpu", f), delimiter=",",
+                        skiprows=1)
+        if np.max(np.abs(va - vc)) > tol:
+            diffs.append(f"{f}: card and CPU rows differ")
+    # plot-diff: host numpy on a CSV; on the card run's CSV it gives the
+    # bands the CPU run's plotter gives on that CSV, and within 1e-3 dB of
+    # the bands of the CPU run's own CSV
+    plot = cs.plot_diff_spectrum(os.path.join(d, "cuda", "diff.csv"))
+    plot_again = cs.plot_diff_spectrum(os.path.join(d, "cuda", "diff.csv"))
+    plot_cpu = cs.plot_diff_spectrum(os.path.join(d, "cpu", "diff.csv"))
+    if plot["bands"] != plot_again["bands"]:
+        diffs.append("plot-diff bands differ between two runs")
+    diffs += check_differences(plot["bands"], plot_cpu["bands"], tol,
+                               "plot-diff")
+    if r["gate_threshold"] is None:
+        diffs.append("reverse-engineer: no C1/C2 separation found")
+    if diffs or not three_csv:
+        fail(f"comparison commands, card vs CPU: {diffs}")
+    pngs = sorted(os.path.relpath(os.path.join(root, f), d)
+                  for root, _, files in os.walk(d) for f in files
+                  if f.endswith(".png"))
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = "matplotlib imports"
+    except ImportError:
+        have_mpl = "matplotlib does not import"
+    log(f"comparison commands (60 s input vs its process output; "
+        f"reverse-engineer on a 60 s AR(1)-noise pair, gate at -32 dBFS), "
+        f"card vs CPU: delays, frame counts, histogram and level-table counts "
+        f"equal; bands, music_err {b['music_err']:.4f} / "
+        f"{bc['music_err']:.4f} dB, noise_delta, CSV rows, threshold "
+        f"estimate {r['gate_threshold']['estimate']:.4f} / "
+        f"{rc_['gate_threshold']['estimate']:.4f} dBFS within 1e-3 dB; "
+        f"plot-diff bands {plot['bands']}; walls card "
+        f"{card['wall']:.3f} s, CPU {cpu['wall']:.3f} s; {have_mpl}, PNGs "
+        f"written: {pngs or 'none'}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2167,9 +2656,17 @@ def main() -> int:
         os.path.join(tmp, "long_pcm24.csv"), tmp))
     launches.update(case_study_path(cuda_ola, tmp))
     analyzer_paths(ip, op, cp, tmp)
+
+    # -- 23-25. process-sharded: full size, the variants and the CLI, resume -
+    launches.update(sharded_paths(torch, cuda_ola, audio, standard, x, ip,
+                                  op, cp, tmp))
+    # -- 26. process-batch --devices -----------------------------------------
+    launches.update(batch_devices_path(torch, cuda_ola, standard, tmp))
+    # -- 27. the comparison commands and reverse-engineer --------------------
+    comparison_paths(audio, standard, ip, op, tmp)
     tmp_dir.cleanup()
 
-    # -- 23. result ----------------------------------------------------------
+    # -- 28. result ----------------------------------------------------------
     replaces = {"chunk_tail_batched": "tomatis_tpu/ops/pallas_ola.py:75 "
                 "under jax.vmap (tomatis_tpu/parallel/batch.py:272)"}
     kernels = [dict(name=name, route="cuda",

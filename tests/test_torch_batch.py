@@ -306,10 +306,27 @@ def test_batch_midstream_failure_isolated(tmp_path, monkeypatch, what, msg):
     assert _same_bytes(out_single, tmp_path / "ob.wav")
 
 
-def test_devices_n_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="devices"):
-        _batch([(tmp_path / "a.flac", tmp_path / "b.flac")],
-               StandardParams(), devices=2)
+@pytest.mark.parametrize("devices", [["cpu"] * 4, ["cpu"] * 2, 3],
+                         ids=["list4", "list2", "int3"])
+def test_devices_n_matches_single_device(tmp_path, devices):
+    """Lanes sharded over lane blocks, one per device (tests/test_batch.py
+    :44-63): 3 lanes on 4 devices ride with one idle lane, on 2 devices
+    with one too, on 3 (an int: blocks on the named device) with none;
+    every lane's bytes and state CSV equal its single-file run's."""
+    p = StandardParams(require_48k_stereo=False)
+    jobs = _files(tmp_path, [2.0, 1.4, 2.6], seed0=10)
+    csvs = [tmp_path / f"st{i}.csv" for i in range(3)]
+    stats = _batch(jobs, p, devices=devices, state_csv_paths=csvs)
+    assert all(s["failed"] is None for s in stats)
+    D = devices if isinstance(devices, int) else len(devices)
+    lt = batch.LAST_TIMINGS
+    assert lt["devices"] == ["cpu"] * D
+    assert lt["block_launches"] == [lt["chunks"]] * D
+    for i, (ip, op) in enumerate(jobs):
+        ref_o, ref_c = tmp_path / f"ref{i}.flac", tmp_path / f"refst{i}.csv"
+        process(ip, ref_o, p, state_csv_path=ref_c, frames_per_chunk=FPC,
+                device="cpu")
+        assert _same_bytes(op, ref_o) and _same_bytes(csvs[i], ref_c)
 
 
 def test_batch_defaults_to_the_card(tmp_path):
@@ -339,6 +356,11 @@ def test_process_batch_cli(tmp_path, capsys):
                 frames_per_chunk=FPC, device="cpu")
         assert _same_bytes(outdir / f"in{i}_tomatis.flac", ref)
         assert _same_bytes(csvdir / f"in{i}.csv", tmp_path / f"ref{i}.csv")
-    rc = cli_main.main(["process-batch", "-i", ins[0], "-o", str(outdir),
-                        "--devices", "2", "--device", "cpu"])
-    assert rc == 1 and "not ported" in capsys.readouterr().out
+    sharded = tmp_path / "sharded"
+    rc = cli_main.main(["process-batch", "-i", *ins[:2], "-o", str(sharded),
+                        "--frames_per_chunk", str(FPC), "--devices", "2",
+                        "--device", "cpu"])
+    assert rc == 0 and "2/2 files" in capsys.readouterr().out
+    for i in range(2):
+        assert _same_bytes(sharded / f"in{i}_tomatis.flac",
+                           outdir / f"in{i}_tomatis.flac")

@@ -74,6 +74,28 @@ def test_cuda_ola_matches_plain_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F,C,n_fft,hop", [(256, 2, 4096, 2048),
+                                           (256, 1, 4096, 2048),
+                                           (23, 2, 1024, 512),
+                                           (23, 1, 1024, 512)])
+def test_cuda_ola_at_the_sharded_shapes_on_card(F, C, n_fft, hop):
+    """The shapes process-sharded gives the standalone overlap-add: a
+    shard of frames_per_shard frames (256 in production, 23 in the CPU
+    tests, a count no tile divides), the frames at C = 2 and the window
+    weights at C = 1. K = 2: equal to the plain version bit for bit."""
+    _card()
+    rng = np.random.default_rng(F * 10 + C)
+    y = torch.from_numpy(
+        rng.standard_normal((F, C, n_fft)).astype(np.float32)).cuda()
+    n0 = cuda_ola.overlap_add_cuda.launches
+    got = cuda_ola.overlap_add_cuda(y, hop)
+    torch.cuda.synchronize()
+    assert cuda_ola.overlap_add_cuda.launches == n0 + 1
+    assert got.shape == ((F - 1) * hop + n_fft, C)
+    assert torch.equal(got, cuda_ola.overlap_add_plain(y, hop))
+
+
+@pytest.mark.cuda
 def test_chunk_tail_cuda_equals_plain_on_card():
     _card()
     cases = [(64, 2, 4096, 2048, 64), (64, 2, 4096, 2048, 30),

@@ -134,3 +134,48 @@ def test_card_scripts_import_no_jax(path):
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_sharded_and_comparison_modules_import_no_jax_no_pandas():
+    """The sharded processor and its stream driver, the comparison suite,
+    reverse-engineer and their commands, imported on their own in a fresh
+    interpreter: no jax, nothing of the JAX package, no pandas (plot-diff
+    reads its CSV with the csv module), and no matplotlib until a plot is
+    drawn."""
+    mods = ["parallel.sharded", "parallel.stream", "parallel.batch",
+            "analysis.compare_suite", "analysis.reverse",
+            "cli.process_sharded", "cli.compare_suite", "cli.reverse",
+            "cli.process_batch", "cli.main"]
+    code = ("import sys; sys.path.insert(0, %r); import importlib; "
+            "[importlib.import_module('tomatis_tpu_torch.' + m) "
+            "for m in %r]; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tomatis_tpu', 'pandas', 'matplotlib')); "
+            "assert not bad, bad" % (REPO, mods))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_port_uses_no_process_group_and_no_compiler():
+    """The mesh is one process over a device list: no module of the port
+    (nor chip_smoke.py) uses torch.distributed, torch.compile or dynamo."""
+    import ast
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "tomatis_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    banned = ("distributed", "compile", "_dynamo")
+    bad = []
+    for path in paths:
+        tree = ast.parse(open(path).read())
+        for n in ast.walk(tree):
+            if isinstance(n, ast.Attribute) and n.attr in banned \
+                    and isinstance(n.value, ast.Name) \
+                    and n.value.id == "torch":
+                bad.append((path, f"torch.{n.attr}"))
+            mods = ([a.name for a in n.names] if isinstance(n, ast.Import)
+                    else [n.module] if isinstance(n, ast.ImportFrom)
+                    and n.module else [])
+            bad += [(path, m) for m in mods
+                    if m.split(".")[:2] in (["torch", b] for b in banned)]
+    assert not bad, bad

@@ -305,7 +305,8 @@ def test_cli_appliers_and_adaptive(files, reports, capsys):
 def test_cli_lists_thirteen_commands(capsys):
     """Every ported command: the fourteen of the processors, the appliers,
     the repair tools and match, then the verifiers, the analyzers and
-    doctor, 29 in all."""
+    doctor, then the sharded processor, the comparison suite and
+    reverse-engineer, 35 in all."""
     assert cli_main.main(["--help"]) == 0
     out = capsys.readouterr().out
     for cmd in ("process", "process-xfade", "convert", "process-adaptive",
@@ -315,9 +316,11 @@ def test_cli_lists_thirteen_commands(capsys):
                 "verify-15db-v2", "verify-tilt", "doctor", "analyze-dbfs",
                 "analyze-gate-threshold", "analyze-stereo", "compare-dbfs",
                 "merge-state-volume", "inspect", "inspect-transition",
-                "find-segment", "find-start", "find-end"):
+                "find-segment", "find-start", "find-end",
+                "process-sharded", "compare-baseline", "compare-three",
+                "compare-diff-spectrum", "plot-diff", "reverse-engineer"):
         assert f"\n  {cmd} " in out, cmd
-    assert len(cli_main.COMMANDS) == 29
+    assert len(cli_main.COMMANDS) == 35
 
 
 def test_cli_default_device_fails_without_card(files, capsys):

@@ -1,12 +1,11 @@
 """CLI dispatcher of the PyTorch port:
 `python -m tomatis_tpu_torch.cli.main <command> ...`.
 
-The three processors, the batch processor, the EQ appliers, the repair
-tools, the device-matching workflow with its analysis commands, the
-verifiers, the level and segment analyzers and doctor are ported: 29 of
-the 35 commands of tomatis_tpu/cli/main.py. The six still queued in
-ROADMAP.md are compare-baseline, compare-three, compare-diff-spectrum,
-plot-diff, reverse-engineer and process-sharded.
+All 35 commands of tomatis_tpu/cli/main.py: the three processors, the
+sharded and the batch processor, the EQ appliers, the repair tools, the
+device-matching workflow with its analysis commands, the comparison
+suite, reverse-engineer, the verifiers, the level and segment analyzers
+and doctor.
 
 An entry is (module, help) and the module's main() runs, or (module,
 help, function) and that function runs, as in the reference's table.
@@ -26,6 +25,9 @@ COMMANDS = {
     "process-adaptive": ("tomatis_tpu_torch.cli.process_adaptive",
                          "adaptive processor (auto threshold, min-hold, "
                          "crossfade)"),
+    "process-sharded": ("tomatis_tpu_torch.cli.process_sharded",
+                        "processor sharded over a mesh of devices "
+                        "(sequence-parallel)"),
     "apply-eq": ("tomatis_tpu_torch.cli.apply_eq",
                  "apply a static EQ curve (layer 2)"),
     "apply-residual-eq": ("tomatis_tpu_torch.cli.apply_residual_eq",
@@ -84,6 +86,18 @@ COMMANDS = {
                    "smart music-start detection", "find_start_main"),
     "find-end": ("tomatis_tpu_torch.cli.analyzers",
                  "smart music-end detection", "find_end_main"),
+    "compare-baseline": ("tomatis_tpu_torch.cli.compare_suite",
+                         "multi-candidate baseline comparison report",
+                         "baseline_main"),
+    "compare-three": ("tomatis_tpu_torch.cli.compare_suite",
+                      "Welch-spectrum + envelope comparison", "three_main"),
+    "compare-diff-spectrum": ("tomatis_tpu_torch.cli.compare_suite",
+                              "RMS-gated diff spectrum on a log-f grid",
+                              "diff_spectrum_main"),
+    "plot-diff": ("tomatis_tpu_torch.cli.compare_suite",
+                  "plot a diff-spectrum CSV", "plot_main"),
+    "reverse-engineer": ("tomatis_tpu_torch.cli.reverse",
+                         "reverse-engineer device gate/tilt parameters"),
 }
 
 

@@ -4,8 +4,9 @@ batched chunk-tail launch per chunk, per-file failure isolation.
     python -m tomatis_tpu_torch.cli.main process-batch -i a.flac b.flac -o outdir/
 
 Takes the reference flags (tomatis_tpu/cli/process_batch.py); --device
-picks the card (default cuda). --devices other than 0 or 1 is refused:
-sharding lanes over several cards is not ported yet.
+picks the card (default cuda). --devices N shards the lanes over the first
+N cards, or puts N lane blocks on the one device that --device names
+(cuda:0, cpu).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--allow_any_rate", action="store_true")
     ap.add_argument("--devices", type=int, default=0,
                     help="shard the lane axis over the first N devices "
-                         "(0 = single device; N > 1 is not ported yet)")
+                         "(0 = single device)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, cuda:N or cpu)")
     return ap

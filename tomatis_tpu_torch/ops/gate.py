@@ -182,6 +182,42 @@ def compose_clip(f, g):
             torch.minimum(c2, torch.maximum(b2, c1 + a2)))
 
 
+def prefix_clip(p):
+    """Inclusive prefix compositions of clip-affine maps p = (a, b, c),
+    each [F]: out[j] = p_j o ... o p_0, by log-step doubling."""
+    d = 1
+    while d < p[0].shape[0]:
+        comp = compose_clip(tuple(t[:-d] for t in p),
+                            tuple(t[d:] for t in p))
+        p = tuple(torch.cat([t[:d], u]) for t, u in zip(p, comp))
+        d *= 2
+    return p
+
+
+def clip_maps(targets, step, valid=None):
+    """The ramp's per-frame clip-affine maps (a, b, c) toward 0/1 targets
+    [F]; invalid frames are the identity (0, -_BIG, _BIG)."""
+    targets = targets.to(torch.float32)
+    dev = targets.device
+    step = torch.as_tensor(step, dtype=torch.float32, device=dev)
+    big = torch.full((), _BIG, dtype=torch.float32, device=dev)
+    zero, one = torch.zeros_like(big), torch.ones_like(big)
+    up = targets > 0.5
+    a = torch.where(up, step, -step)
+    b = torch.where(up, -big, zero)
+    c = torch.where(up, one, big)
+    if valid is not None:
+        a = torch.where(valid, a, zero)
+        b = torch.where(valid, b, -big)
+        c = torch.where(valid, c, big)
+    return a, b, c
+
+
+def apply_clip(p, x):
+    """The clip-affine map(s) p = (a, b, c) applied to x."""
+    return torch.minimum(p[2], torch.maximum(p[1], x + p[0]))
+
+
 def alpha_ramp(targets, step, alpha0, valid=None):
     """Rate-limited crossfade ramp toward per-frame 0/1 targets.
 
@@ -195,29 +231,9 @@ def alpha_ramp(targets, step, alpha0, valid=None):
     targets: [F] (0.0 or 1.0); step: scalar; alpha0: scalar alpha before
     the first frame's update; valid: optional [F] bool, invalid frames keep
     alpha. Returns alpha [F] float32 after each frame's update."""
-    targets = targets.to(torch.float32)
-    dev = targets.device
-    step = torch.as_tensor(step, dtype=torch.float32, device=dev)
-    alpha0 = torch.as_tensor(alpha0, dtype=torch.float32, device=dev)
-    big = torch.full((), _BIG, dtype=torch.float32, device=dev)
-    zero, one = torch.zeros_like(big), torch.ones_like(big)
-    up = targets > 0.5
-    a = torch.where(up, step, -step)
-    b = torch.where(up, -big, zero)
-    c = torch.where(up, one, big)
-    if valid is not None:
-        a = torch.where(valid, a, zero)
-        b = torch.where(valid, b, -big)
-        c = torch.where(valid, c, big)
-    p = (a, b, c)
-    d = 1
-    while d < targets.shape[0]:
-        comp = compose_clip(tuple(t[:-d] for t in p),
-                            tuple(t[d:] for t in p))
-        p = tuple(torch.cat([t[:d], u]) for t, u in zip(p, comp))
-        d *= 2
-    pa, pb, pc = p
-    return torch.minimum(pc, torch.maximum(pb, alpha0 + pa))
+    alpha0 = torch.as_tensor(alpha0, dtype=torch.float32,
+                             device=targets.device)
+    return apply_clip(prefix_clip(clip_maps(targets, step, valid)), alpha0)
 
 
 def alpha_ramp_snap_first(targets, step):

@@ -20,13 +20,20 @@ routes all lanes on one worker in a serial loop, and on a PCIe host the
 encoder is a FLAC sink's wall). The native codecs release the interpreter
 lock. Each file's bytes are the serial loop's bytes.
 
-Not carried over, each listed as open in ROADMAP.md: the single-device
-`wire` batch (flat h2d header, page rows, `LAST_WIRE`), `devices=N` lane
-sharding (raises NotImplementedError), and `_VCHUNK_CACHE` (eager torch
-compiles nothing).
+devices=N (or a device list) shards the lanes over devices, as the
+reference's shard_map over a 1-D 'data' mesh: the lanes are padded to a
+multiple of the device count with idle lanes, and lane block k runs its
+own batched launch per chunk on devices[k], with no traffic between
+devices (the reference's shard_map has none). A device may repeat: lane
+blocks then take turns on it.
+
+Not carried over: the single-device `wire` batch (flat h2d header, page
+rows, `LAST_WIRE`; open in ROADMAP.md; off on the sharded path in the
+reference too), and `_VCHUNK_CACHE` (eager torch compiles nothing).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -36,7 +43,7 @@ from tomatis_tpu_torch.engine.streaming import (ChunkedStftEngine,
                                                 ChunkReadback, SinkState,
                                                 StreamRunner)
 from tomatis_tpu_torch.io import audio
-from tomatis_tpu_torch.utils.device import resolve_device
+from tomatis_tpu_torch.utils.device import resolve_device, resolve_devices
 from tomatis_tpu_torch.utils.pipeline import (OrderedWorker, Prefetcher,
                                               StagedPipeline)
 from tomatis_tpu_torch.utils.rolling import RollingReader
@@ -137,6 +144,56 @@ def _close(h) -> None:
         pass
 
 
+def _on(dev: torch.device):
+    """The device context of a CUDA device (events and copies go on its
+    current stream); nothing for the CPU."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class _BlockReadback:
+    """The readback of one batch chunk: a ChunkReadback per lane block,
+    each made and driven on its block's device. materialize() returns
+    [pcm, aux] host arrays per block."""
+
+    def __init__(self, parts: list):
+        self._parts = []
+        for dev, fetch in parts:
+            with _on(dev):
+                self._parts.append((dev, ChunkReadback(fetch)))
+
+    def _each(self, name: str) -> list:
+        out = []
+        for dev, rb in self._parts:
+            with _on(dev):
+                out.append(getattr(rb, name)())
+        return out
+
+    def block_until_ready(self) -> None:
+        self._each("block_until_ready")
+
+    def copy_to_host_async(self) -> None:
+        self._each("copy_to_host_async")
+
+    def materialize(self) -> list:
+        return self._each("materialize")
+
+
+def _lane_devices(devices, device) -> list:
+    """The device of each lane block: `device` alone (one block) for
+    devices None; for an int N the first N CUDA devices, or N blocks on
+    `device` when it names one (cpu, cuda:N); a list as given."""
+    if devices is None:
+        return [resolve_device(device)]
+    if isinstance(devices, int):
+        devs = resolve_devices(devices, device)
+    else:
+        devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("empty device list")
+    return devs
+
+
 def _host_buffer(shape, dtype, dev: torch.device) -> torch.Tensor:
     """A host staging tensor: pinned when it goes to a card (the caching
     host allocator reuses the block once its copy has run)."""
@@ -155,8 +212,12 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
     state CSV those of standard.process on the same file with the chunk
     ramp off (TOMATIS_NO_RAMP=1): the batch never ramps.
 
-    devices: None or 1. Sharding the lanes over several cards is not
-    ported yet (it waits for torch.distributed, ROADMAP.md)."""
+    devices: None = every lane on `device`. An int N takes the first N
+    CUDA devices (N blocks on `device` when it names one device, e.g.
+    cpu); a list is used as given, repeats allowed. The lanes are padded
+    to a multiple of the device count with idle lanes and lane block k
+    runs on devices[k]; each lane's bytes are those of the single-device
+    run."""
     from tomatis_tpu_torch.models.standard import (StandardParams,
                                                    build_controller)
     p = params or StandardParams()
@@ -166,12 +227,10 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
     if len(csvs) != B:
         raise ValueError(f"state_csv_paths has {len(csvs)} entries for "
                          f"{B} jobs (zip would silently drop jobs)")
-    if devices is not None and devices != 1:
-        raise NotImplementedError(
-            f"devices={devices!r}: sharding the lanes over several cards is "
-            "not ported yet (it waits for the torch.distributed port, "
-            "ROADMAP.md queue item 7)")
-    dev = resolve_device(device)
+    blocks = _lane_devices(devices, device)
+    D = len(blocks)
+    Bl = -(-B // D)      # lanes per block; Bl * D - B idle lanes pad
+    Bp = Bl * D
 
     # probe the batch's sr/ch from the first openable file
     sr = ch = None
@@ -193,11 +252,17 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
                      c2_frames=0, c2_ratio=0.0)
                 for (in_path, out_path), m in zip(jobs, metas)]
 
-    engine = ChunkedStftEngine(p.n_fft, p.hop, ch, frames_per_chunk,
-                               device=dev)
-    controller = build_controller(p, sr, dev)
-    chunk_fn = engine.make_batch_chunk_fn(controller)
-    ctl_params = controller.params()
+    # one engine, controller and batched step per distinct device
+    steps = {}
+    for dv in blocks:
+        if str(dv) not in steps:
+            eng = ChunkedStftEngine(p.n_fft, p.hop, ch, frames_per_chunk,
+                                    device=dv)
+            ctl = build_controller(p, sr, dv)
+            steps[str(dv)] = dict(engine=eng, ctl=ctl,
+                                  fn=eng.make_batch_chunk_fn(ctl))
+    engine, controller = (steps[str(blocks[0])][k] for k in ("engine",
+                                                             "ctl"))
 
     lanes = []
     for (in_path, out_path), m, csvp in zip(jobs, metas, csvs):
@@ -242,12 +307,14 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         goes to timings["read_s"]."""
         pf0 = [0] * B
         dead = [lane.failed is not None for lane in lanes]
+        pin = blocks[0]
         while True:
             _t = time.perf_counter()
-            sig = _host_buffer((B, L, ch), torch.float32, dev)
-            nv = _host_buffer((B,), torch.int32, dev)
+            sig = _host_buffer((Bp, L, ch), torch.float32, pin)
+            nv = _host_buffer((Bp,), torch.int32, pin)
             sig_np, nfs = sig.numpy(), nv.numpy()
             nfs[:] = 0
+            sig_np[B:] = 0.0      # the idle lanes that pad the blocks
             errs, reads = {}, {}
             for i, lane in enumerate(lanes):
                 nf = min(F, lane.n_frames - pf0[i])
@@ -276,16 +343,21 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
                 return
             yield sig, nv, errs
 
-    carries = [controller.init_carry() for _ in range(B)]
-    out_tail_b = torch.zeros((B, engine.tail_len, ch), dtype=torch.float32,
-                             device=dev)
-    w_tail_b = torch.zeros((B, engine.tail_len), dtype=torch.float32,
-                           device=dev)
-    gain = torch.tensor(lanes[0].runner.output_gain, dtype=torch.float32,
-                        device=dev)
+    # per lane block, on its device: the lanes' controller carries and
+    # OLA tails, the controller's parameters and the output gain
+    carries = [steps[str(dv)]["ctl"].init_carry() for dv in blocks
+               for _ in range(Bl)]
+    out_tail_b = [torch.zeros((Bl, engine.tail_len, ch),
+                              dtype=torch.float32, device=dv)
+                  for dv in blocks]
+    w_tail_b = [torch.zeros((Bl, engine.tail_len), dtype=torch.float32,
+                            device=dv) for dv in blocks]
+    params = [steps[str(dv)]["ctl"].params() for dv in blocks]
+    gains = [torch.tensor(lanes[0].runner.output_gain, dtype=torch.float32,
+                          device=dv) for dv in blocks]
     timings = {"stage_s": 0.0, "dispatch_s": 0.0, "block_s": 0.0,
                "consume_s": 0.0, "finish_s": 0.0, "chunks": 0,
-               "read_s": 0.0}
+               "read_s": 0.0, "block_launches": [0] * D}
     writers: dict = {}
 
     def route(i, c_frame0, c_nf, payload, aux, out_dev):
@@ -317,13 +389,16 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
     def pipe_finish(ck):
         """S3: wait the readback out and hand each active lane's rows to
         its writer thread."""
-        frame0s, nfs_c, rb, out_dev = ck["ready"]
-        pcm_np, aux_np = rb.materialize()
+        frame0s, nfs_c, rb, out_devs = ck["ready"]
+        parts = rb.materialize()
         for i, lane in enumerate(lanes):
             if lane.failed is None and nfs_c[i] > 0:
+                k, j = divmod(i, Bl)
+                pcm_np, aux_np = parts[k]
                 writers[i].submit(
-                    lambda i=i: route(i, frame0s[i], int(nfs_c[i]),
-                                      pcm_np[i], aux_np[i], out_dev[i]))
+                    lambda i=i, j=j, k=k, pcm_np=pcm_np, aux_np=aux_np:
+                    route(i, frame0s[i], int(nfs_c[i]), pcm_np[j],
+                          aux_np[j], out_devs[k][j]))
 
     def join_writers():
         for w in writers.values():
@@ -357,20 +432,28 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
                 continue
             if all(lane.failed is not None for lane in lanes):
                 break   # nothing left to route; drop the staged chunk
-            sig_d = sig.to(dev, non_blocking=True)
-            nv_d = nv.to(dev, non_blocking=True)
+            staged = [(sig[k * Bl:(k + 1) * Bl].to(dv, non_blocking=True),
+                       nv[k * Bl:(k + 1) * Bl].to(dv, non_blocking=True))
+                      for k, dv in enumerate(blocks)]
             timings["stage_s"] += time.perf_counter() - _t
             _t = time.perf_counter()
-            pcm, aux, out_dev, carries, out_tail_b, w_tail_b = chunk_fn(
-                sig_d, nv_d, carries, out_tail_b, w_tail_b, ctl_params,
-                gain)
-            rb = ChunkReadback([pcm, aux])
+            fetch, out_devs = [], []
+            for k, (dv, (sig_d, nv_d)) in enumerate(zip(blocks, staged)):
+                rows = slice(k * Bl, (k + 1) * Bl)
+                (pcm, aux, out_dev, carries[rows], out_tail_b[k],
+                 w_tail_b[k]) = steps[str(dv)]["fn"](
+                    sig_d, nv_d, carries[rows], out_tail_b[k], w_tail_b[k],
+                    params[k], gains[k])
+                timings["block_launches"][k] += 1
+                fetch.append((dv, [pcm, aux]))
+                out_devs.append(out_dev)
+            rb = _BlockReadback(fetch)
             timings["dispatch_s"] += time.perf_counter() - _t
             timings["chunks"] += 1
             frame0s = [lane.frame0 for lane in lanes]
             for i, lane in enumerate(lanes):
                 lane.frame0 += int(nfs[i])
-            pipe.push((frame0s, nfs, rb, out_dev), rb)
+            pipe.push((frame0s, nfs, rb, out_devs), rb)
 
             _t = time.perf_counter()
             pipe.promote()
@@ -387,8 +470,8 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         # the stream tails of lanes whose last chunk was full, then every
         # lane's last flush cut, each on its own writer thread
         _t = time.perf_counter()
-        out_tail_np = out_tail_b.cpu().numpy()
-        w_tail_np = w_tail_b.cpu().numpy()
+        out_tail_np = torch.cat([t.cpu() for t in out_tail_b]).numpy()
+        w_tail_np = torch.cat([t.cpu() for t in w_tail_b]).numpy()
         for i, w in writers.items():
             w.submit(lambda i=i: finish(i, out_tail_np[i], w_tail_np[i]))
         join_writers()
@@ -397,6 +480,7 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         LAST_TIMINGS.update({k: round(v, 4) if isinstance(v, float) else v
                              for k, v in timings.items()})
         LAST_TIMINGS["drain_s"] = round(drain_s, 4)
+        LAST_TIMINGS["devices"] = [str(dv) for dv in blocks]
         LAST_TIMINGS["lane_write_s"] = [round(lane.write_s, 4)
                                         for lane in lanes]
     finally:

@@ -16,3 +16,16 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU")
     return dev
+
+
+def resolve_devices(n: int | None = None, device="cuda") -> list:
+    """The device list of a mesh or of a batch's lane blocks. `device`
+    "cuda" (no index): the first n CUDA devices, all of them when n is
+    None; one named device (cuda:N, cpu): that device n times (once when
+    n is None), so that several shards or lane blocks share it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        count = torch.cuda.device_count()
+        k = min(n, count) if n else count
+        return [torch.device("cuda", i) for i in range(k)]
+    return [dev] * (n or 1)
