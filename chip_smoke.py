@@ -156,7 +156,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
     bands, music_err,
     noise_delta, CSV rows and the threshold estimate within 1e-3 dB; which
     PNGs were written (none where matplotlib does not import);
-28. prints the card line, the kernels JSON line and, last, the result
+28. process-batch on wire: (a) phase 18's eight FLAC lanes at B = 8
+    through process_batch(transport="wire"), in turns with pcm24 (pcm24,
+    wire, wire, pcm24): every lane's FLAC and state CSV equal the pcm24
+    run's byte for byte, one batched launch per batch chunk and no
+    single-file one; walls, aggregate realtime factor, LAST_TIMINGS,
+    LAST_WIRE (shipped/used both ways), peak device memory; the RPC
+    worker down (4 chunks). (b) the 10-minute FLAC of phase 15 beside the
+    60 s FLAC on wire, then pcm24: bytes equal, the RPC worker up and
+    used for the encodes and decodes. (c) a 20 s FLOAT WAV that is not
+    PCM_24-exact beside the 60 s FLAC: its chunks ship raw floats, the
+    later ones the codec, bytes equal to pcm24's. No call reaches the
+    numpy wire codec in this process;
+29. prints the card line, the kernels JSON line and, last, the result
     line {"ok": true, "device": {...}}. Each path is driven with the
     launch counts set to 0 just before it and read just after:
     `launches_by_path` holds those readings, `launches` their sum.
@@ -2115,6 +2127,193 @@ def sharded_paths(torch, cuda_ola, audio, standard, x, ip, op, cp,
     return launches
 
 
+def wire_batch_run(torch, cuda_ola, batch, p, jobs, csvs, tr: str,
+                   what: str):
+    """One process_batch call on the card with the launch counts set to 0
+    just before it and read just after (one batched launch per batch
+    chunk, nothing else). Returns (stats, wall, LAST_TIMINGS, LAST_WIRE,
+    counts, peak device memory)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(cuda_ola)
+    t0 = time.perf_counter()
+    stats = batch.process_batch(jobs, p, state_csv_paths=csvs,
+                                device="cuda", transport=tr)
+    wall = time.perf_counter() - t0
+    lt, lw = dict(batch.LAST_TIMINGS), dict(batch.LAST_WIRE)
+    counts = read_batch_counts(cuda_ola, lt["chunks"], what)
+    if lt["transport"] != tr or bool(lw) != (tr == "wire"):
+        fail(f"{what}: transport {lt['transport']}, LAST_WIRE {lw}")
+    bad = [(j, s["failed"]) for j, s in enumerate(stats)
+           if s["failed"] is not None]
+    if bad:
+        fail(f"{what}: lanes failed: {bad}")
+    return (stats, wall, lt, lw, counts,
+            torch.cuda.max_memory_allocated())
+
+
+def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
+    """Phase 28: process_batch(transport="wire") on the card against the
+    pcm24 batch of the same call, byte for byte: (a) phase 18's eight FLAC
+    lanes at B = 8, in turns with pcm24, twice each; (b) the 10-minute
+    FLAC of phase 15 beside the 60 s one, long enough to start the RPC
+    worker; (c) a FLOAT WAV lane that is not PCM_24-exact beside a PCM_24
+    one (the raw-float fallback)."""
+    from tomatis_tpu_torch.engine import staging
+    from tomatis_tpu_torch.io import wirecodec
+    from tomatis_tpu_torch.ops import wire as wire_ops
+    from tomatis_tpu_torch.parallel import batch
+    p = standard.StandardParams()
+    if not wirecodec.available():
+        fail("wire batch: the native wire codec (csrc/wire.cpp) is not "
+             "loaded")
+    # the numpy codec must not run: count any call into it
+    numpy_calls = [0]
+    np_enc, np_dec = wire_ops.encode_np, wire_ops.decode_np
+
+    def counted(fn):
+        def call(*a, **k):
+            numpy_calls[0] += 1
+            return fn(*a, **k)
+        return call
+    # the RPC worker's calls, counted in this process
+    rpc_calls = {"encode": 0, "decode": 0}
+    enc_off = staging.host_encode_offload
+    dec_off = staging.decode_pcm24_offload
+
+    def host_encode_offload(*a):
+        rpc_calls["encode"] += 1
+        return enc_off(*a)
+
+    def decode_pcm24_offload(*a):
+        rpc_calls["decode"] += 1
+        return dec_off(*a)
+
+    wire_ops.encode_np, wire_ops.decode_np = counted(np_enc), counted(np_dec)
+    staging.host_encode_offload = host_encode_offload
+    staging.decode_pcm24_offload = decode_pcm24_offload
+    launches = {}
+
+    def compare(name, jobs_w, csvs_w, jobs_p, csvs_p):
+        for j, ((_, ow), (_, op)) in enumerate(zip(jobs_w, jobs_p)):
+            if not files_equal(ow, op) or (
+                    csvs_w and not files_equal(csvs_w[j], csvs_p[j])):
+                fail(f"{name}: lane {j}'s file or state CSV differs from "
+                     f"the pcm24 batch's")
+
+    def ratios(lw):
+        return (f"in shipped/used {lw['in_shipped'] / lw['in_used']:.5f} "
+                f"({lw['in_used']} B used), out shipped/used "
+                f"{lw['out_shipped'] / lw['out_used']:.5f} "
+                f"({lw['out_used']} B used)")
+
+    try:
+        # (a) eight lanes, B = 8: the local codec (a lane of 150 s is 4
+        # chunks, under the RPC worker's 8)
+        staging.shutdown_workers()
+        ins = [os.path.join(tmp, f"lane{i}.flac") for i in range(8)]
+        outs = {}
+        for k, tr in enumerate(("pcm24", "wire", "wire", "pcm24")):
+            d = os.path.join(tmp, f"wire_b8_{k}")
+            os.makedirs(d)
+            jobs = [(ip, os.path.join(d, f"out{j}.flac"))
+                    for j, ip in enumerate(ins)]
+            csvs = [os.path.join(d, f"st{j}.csv") for j in range(8)]
+            stats, wall, lt, lw, c, peak = wire_batch_run(
+                torch, cuda_ola, batch, p, jobs, csvs, tr,
+                f"wire batch (a) run {k + 1} ({tr})")
+            if tr == "wire":
+                launches.setdefault("batch_wire_b8", c)
+            outs.setdefault(tr, (jobs, csvs))
+            compare(f"wire batch (a) run {k + 1}", jobs, csvs,
+                    *outs["pcm24"])
+            audio_s = sum(s["n_frames"] * p.hop / SR for s in stats)
+            log(f"wire batch (a) run {k + 1}, {tr}: 8 lanes, "
+                f"{lt['chunks']} batch chunks, {c['chunk_tail_batched']} "
+                f"batched launches and no single-file one; every lane's "
+                f"FLAC and state CSV equal the pcm24 run's; wall {wall:.3f}"
+                f" s, aggregate realtime factor {audio_s / wall:.2f}x, peak "
+                f"device memory {peak / 1e9:.3f} GB"
+                + (f", {ratios(lw)}" if lw else "") + f"; LAST_TIMINGS {lt}"
+                + (f"; LAST_WIRE {lw}" if lw else ""))
+        if staging.rpc_available() or any(rpc_calls.values()):
+            fail(f"wire batch (a): the RPC worker ran ({rpc_calls}); a "
+                 f"batch of 4 chunks keeps the local codec")
+
+        # (b) the 10-minute FLAC beside a 60 s lane: 15 chunks, so the
+        # batch starts the RPC worker for its encodes and decodes
+        ins = [os.path.join(tmp, "long.flac"), os.path.join(tmp, "in.flac")]
+        outs = {}
+        for tr in ("wire", "pcm24"):
+            d = os.path.join(tmp, f"wire_long_{tr}")
+            os.makedirs(d)
+            jobs = [(ip, os.path.join(d, f"out{j}.flac"))
+                    for j, ip in enumerate(ins)]
+            csvs = [os.path.join(d, f"st{j}.csv") for j in range(2)]
+            staging.shutdown_workers()
+            stats, wall, lt, lw, c, peak = wire_batch_run(
+                torch, cuda_ola, batch, p, jobs, csvs, tr,
+                f"wire batch (b) {tr}")
+            outs[tr] = (jobs, csvs)
+            if tr == "wire":
+                launches["batch_wire_long"] = c
+                if not staging.rpc_available() or not all(
+                        rpc_calls.values()):
+                    fail(f"wire batch (b): the RPC worker was not used "
+                         f"({rpc_calls}, up {staging.rpc_available()})")
+            audio_s = sum(s["n_frames"] * p.hop / SR for s in stats)
+            log(f"wire batch (b), {tr}: the 10-minute FLAC and a 60 s lane,"
+                f" {lt['chunks']} batch chunks, {c['chunk_tail_batched']} "
+                f"batched launches; wall {wall:.3f} s, aggregate realtime "
+                f"factor {audio_s / wall:.2f}x, peak device memory "
+                f"{peak / 1e9:.3f} GB"
+                + (f", RPC worker up, its calls {rpc_calls}, {ratios(lw)}"
+                   if lw else "") + f"; LAST_TIMINGS {lt}")
+        compare("wire batch (b)", *outs["wire"], *outs["pcm24"])
+        log("wire batch (b): both lanes' FLACs and state CSVs equal the "
+            "pcm24 run's byte for byte")
+
+        # (c) a FLOAT WAV that is not PCM_24-exact (20 s) beside the 60 s
+        # PCM_24 FLAC: its chunks ship raw floats, the last one the codec
+        fw = os.path.join(tmp, "float_lane.wav")
+        audio.write(fw, x[:20 * SR] + np.float32(1e-9), SR, subtype="FLOAT")
+        ins = [fw, os.path.join(tmp, "in.flac")]
+        outs = {}
+        staging.shutdown_workers()
+        for tr in ("wire", "pcm24"):
+            d = os.path.join(tmp, f"wire_float_{tr}")
+            os.makedirs(d)
+            jobs = [(ip, os.path.join(d, f"out{j}.flac"))
+                    for j, ip in enumerate(ins)]
+            stats, wall, lt, lw, c, peak = wire_batch_run(
+                torch, cuda_ola, batch, p, jobs, None, tr,
+                f"wire batch (c) {tr}")
+            outs[tr] = (jobs, None)
+            if tr == "wire":
+                launches["batch_wire_float"] = c
+                if not 0 < lw["in_raw_chunks"] < lt["chunks"]:
+                    fail(f"wire batch (c): {lw['in_raw_chunks']} of "
+                         f"{lt['chunks']} chunks shipped raw floats "
+                         f"(expected the float lane's only)")
+                log(f"wire batch (c): {lt['chunks']} batch chunks, "
+                    f"{lw['in_raw_chunks']} of them raw floats (the float "
+                    f"lane's), the rest through the codec; wall {wall:.3f} "
+                    f"s; LAST_WIRE {lw}")
+        compare("wire batch (c)", *outs["wire"], *outs["pcm24"])
+        log("wire batch (c): both lanes equal the pcm24 run's bytes")
+    finally:
+        wire_ops.encode_np, wire_ops.decode_np = np_enc, np_dec
+        staging.host_encode_offload = enc_off
+        staging.decode_pcm24_offload = dec_off
+        staging.shutdown_workers()
+    if numpy_calls[0]:
+        fail(f"wire batch: the numpy wire codec ran {numpy_calls[0]} times "
+             f"(the native one must encode and decode)")
+    log("wire batch: every encode and decode in this process ran in the "
+        "native codec (no call into the numpy one)")
+    return launches
+
+
 def batch_devices_path(torch, cuda_ola, standard, tmp) -> dict:
     """Phase 26: three FLAC lanes of phase 18 on devices=[cuda:0]*2 (two
     lane blocks, padded to 4 lanes), each lane against its devices=None
@@ -2664,9 +2863,12 @@ def main() -> int:
     launches.update(batch_devices_path(torch, cuda_ola, standard, tmp))
     # -- 27. the comparison commands and reverse-engineer --------------------
     comparison_paths(audio, standard, ip, op, tmp)
+    # -- 28. process-batch on wire -------------------------------------------
+    launches.update(wire_batch_path(torch, cuda_ola, audio, standard, x,
+                                    tmp))
     tmp_dir.cleanup()
 
-    # -- 28. result ----------------------------------------------------------
+    # -- 29. result ----------------------------------------------------------
     replaces = {"chunk_tail_batched": "tomatis_tpu/ops/pallas_ola.py:75 "
                 "under jax.vmap (tomatis_tpu/parallel/batch.py:272)"}
     kernels = [dict(name=name, route="cuda",

@@ -364,15 +364,7 @@ class ChunkedStftEngine:
                 return (out, torch.stack(rows), None) + carries
             aux = torch.stack(rows + [peaks])
             if transport == "wire":
-                # the kernel's own bytes, sign-extended: the pack sees
-                # exactly the ints the pcm24 transport ships
-                b = pcm.view(-1, 3)
-                v = (b[:, 0].to(torch.int32)
-                     | (b[:, 1].to(torch.int32) << 8)
-                     | (b[:, 2].view(torch.int8).to(torch.int32) << 16))
-                v = v.reshape(-1, C)
-                return (wire_ops.pack_device(v, v.shape[0], C, rice=rice),
-                        aux, out) + carries
+                return (_pack_pcm24(pcm, C, rice), aux, out) + carries
             return (pcm, aux, out) + carries
 
         return chunk_fn
@@ -391,14 +383,15 @@ class ChunkedStftEngine:
         self.log_keys = log_keys
         return log_keys
 
-    def make_batch_chunk_fn(self, controller) -> Callable:
-        """The pcm24 chunk step of B file lanes (parallel/batch.py), the
+    def make_batch_chunk_fn(self, controller, transport: str = "pcm24",
+                            rice_out: bool | None = None) -> Callable:
+        """The chunk step of B file lanes (parallel/batch.py), the
         counterpart of the reference's jax.vmap of make_chunk_fn over lanes
         (tomatis_tpu/parallel/batch.py:272):
         fn(sig [B, L, C], n_valid int32 [B], ctl_carries (a list of B
         carries), out_tail [B, tail, C], w_tail [B, tail], params,
-        gain_lin) -> (pcm [B, W*hop*C*3] uint8, aux [B, R, W],
-        out [B, W*hop, C], ctl_carries', out_tail', w_tail').
+        gain_lin) -> (payload, aux [B, R, W], out [B, emit_full, C],
+        ctl_carries', out_tail', w_tail').
 
         Framing, levels, the controller and the rFFT gain bank run lane by
         lane at the single-file shapes, so each lane's arithmetic (cuFFT's
@@ -406,7 +399,16 @@ class ChunkedStftEngine:
         batched chunk tail serves every lane. A lane with n_valid == 0
         freezes every carry: the kernel writes its tails back, and its
         controller carry is kept by torch.where on n_valid > 0 (no host
-        sync)."""
+        sync).
+
+        transport="pcm24": payload is pcm [B, emit_full*C*3] uint8.
+        transport="wire": the same launch, then each lane's PCM_24 ints
+        packed as make_chunk_fn's wire step packs them (the per-lane loop
+        is the counterpart of the vmapped pack); payload is (words int32
+        [B, max_words], used int32 [B]). rice_out as in make_chunk_fn."""
+        if transport not in ("pcm24", "wire"):
+            raise ValueError(transport)
+        rice = WIRE_RICE_OUT if rice_out is None else bool(rice_out)
         log_keys = self._bind_log_keys(controller)
         n_fft, hop, F = self.n_fft, self.hop, self.frames_per_chunk
         C, W, dev = self.channels, self.aux_width, self.device
@@ -440,6 +442,10 @@ class ChunkedStftEngine:
                 z, win, win2, n_valid, out_tail, w_tail, gain_lin,
                 transport="pcm24")
             aux = torch.cat([torch.stack(aux_rows), peaks[:, None, :]], 1)
+            if transport == "wire":
+                packed = [_pack_pcm24(pcm[b], C, rice) for b in range(B)]
+                pcm = (torch.stack([w for w, _ in packed]),
+                       torch.stack([u for _, u in packed]))
             return pcm, aux, out, carries, ola_t, w_t
 
         return chunk_fn
@@ -468,6 +474,17 @@ def _host(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         return t.detach().cpu().numpy()
     return np.asarray(t)
+
+
+def _pack_pcm24(pcm, C: int, rice: bool):
+    """The chunk tail's PCM_24 bytes [n*C*3] -> wire_ops.pack_device's
+    (words, used). The bytes are sign-extended, so the pack sees exactly
+    the ints the pcm24 transport ships."""
+    b = pcm.view(-1, 3)
+    v = (b[:, 0].to(torch.int32)
+         | (b[:, 1].to(torch.int32) << 8)
+         | (b[:, 2].view(torch.int8).to(torch.int32) << 16)).reshape(-1, C)
+    return wire_ops.pack_device(v, v.shape[0], C, rice=rice)
 
 
 def _carry_leaves(carry) -> list:

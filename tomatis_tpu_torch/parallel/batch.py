@@ -1,11 +1,12 @@
 """Batch processing: B files per chunk launch, PyTorch port of
-tomatis_tpu/parallel/batch.py (its pcm24 path).
+tomatis_tpu/parallel/batch.py.
 
-Each file is a lane. Every batch chunk uploads the lanes' input windows as
-one pinned [B, L, C] tensor and runs ChunkedStftEngine.make_batch_chunk_fn:
-the lanes' levels, gates and rFFT gain banks at the single-file shapes,
-then ONE launch of the batched chunk-tail kernel for all lanes (the
-counterpart of the Pallas kernel under jax.vmap). Lanes are independent:
+Each file is a lane. Every pcm24 batch chunk uploads the lanes' input
+windows as one pinned [B, L, C] tensor and runs
+ChunkedStftEngine.make_batch_chunk_fn: the lanes' levels, gates and rFFT
+gain banks at the single-file shapes, then ONE launch of the batched
+chunk-tail kernel for all lanes (the counterpart of the Pallas kernel
+under jax.vmap). Lanes are independent:
 per-file gate carries, OLA tails, flush plans and writers. A lane whose
 stream is exhausted (or has failed) keeps riding the launch with zeros and
 n_valid = 0, which freezes its carries. A file whose I/O fails is isolated:
@@ -27,9 +28,25 @@ own batched launch per chunk on devices[k], with no traffic between
 devices (the reference's shard_map has none). A device may repeat: lane
 blocks then take turns on it.
 
-Not carried over: the single-device `wire` batch (flat h2d header, page
-rows, `LAST_WIRE`; open in ROADMAP.md; off on the sharded path in the
-reference too), and `_VCHUNK_CACHE` (eager torch compiles nothing).
+transport="wire" (one device only, as in the reference) compresses the
+link both ways with the wire codec. Input: each active lane's window is
+C++-encoded on the producer, idle lanes take one all-zeros stream, and the
+lanes' streams (whole u32 words) go into ONE pinned int32 buffer behind a
+header of 3*B words (offsets, n_valid, active): one upload per batch
+chunk. The
+device unpacks each lane at its offset (the host knows it from staging).
+A chunk in which some lane is not PCM_24-exact ships the lanes' raw
+floats instead, as the pcm24 batch does. Output: the batched step packs
+each lane's PCM_24 ints on the device, and the active lanes' used words
+are compacted into one flat stream at exclusive-cumsum offsets. S1 reads
+aux and used [B], S2 fetches flat[:total], and each lane's writer thread
+decodes its slice with the native codec before routing it. LAST_WIRE
+holds the link bytes of the last wire call.
+
+Not carried over: `_VCHUNK_CACHE`, `_VSTEP_CACHE`, `_FLAT_GRID` with
+`_flat_canonical`'s padding to a canonical shape, and the 1 MB page rows
+with `_PAGE_ROW` and `trim_tail_page` (they bounded XLA's executable
+count; eager torch compiles nothing).
 """
 from __future__ import annotations
 
@@ -37,12 +54,19 @@ import contextlib
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
-from tomatis_tpu_torch.engine.streaming import (ChunkedStftEngine,
+from tomatis_tpu_torch.engine import staging
+from tomatis_tpu_torch.engine.streaming import (WIRE_RICE_IN,
+                                                ChunkedStftEngine,
                                                 ChunkReadback, SinkState,
-                                                StreamRunner)
-from tomatis_tpu_torch.io import audio
+                                                StreamRunner,
+                                                resolve_rice_out,
+                                                resolve_transport,
+                                                stage_encode)
+from tomatis_tpu_torch.io import audio, wirecodec
+from tomatis_tpu_torch.ops import wire as wire_ops
 from tomatis_tpu_torch.utils.device import resolve_device, resolve_devices
 from tomatis_tpu_torch.utils.pipeline import (OrderedWorker, Prefetcher,
                                               StagedPipeline)
@@ -53,6 +77,13 @@ from tomatis_tpu_torch.utils.stateio import StateCsvWriter
 # thread's stages, the producer's reads (read_s) and each lane's writer
 # thread's busy time (lane_write_s)
 LAST_TIMINGS: dict = {}
+
+# link bytes of the most recent wire-transport process_batch call (empty
+# after any other call): *_used the lanes' exact stream bytes, *_shipped
+# what crossed the link (the input with its header; the output stream of
+# every lane that was active at dispatch); in_raw_chunks the
+# batch chunks that shipped raw floats (some lane not PCM_24-exact)
+LAST_WIRE: dict = {}
 
 
 class _Lane:
@@ -153,14 +184,16 @@ def _on(dev: torch.device):
 
 class _BlockReadback:
     """The readback of one batch chunk: a ChunkReadback per lane block,
-    each made and driven on its block's device. materialize() returns
-    [pcm, aux] host arrays per block."""
+    each made and driven on its block's device. parts: (device, fetch,
+    stream) per block, stream None or (flat words, total) as ChunkReadback
+    takes it. materialize() returns the host arrays of each block: [pcm,
+    aux] (pcm24), [aux, used, flat[:total]] (wire)."""
 
     def __init__(self, parts: list):
         self._parts = []
-        for dev, fetch in parts:
+        for dev, fetch, stream in parts:
             with _on(dev):
-                self._parts.append((dev, ChunkReadback(fetch)))
+                self._parts.append((dev, ChunkReadback(fetch, stream)))
 
     def _each(self, name: str) -> list:
         out = []
@@ -174,6 +207,9 @@ class _BlockReadback:
 
     def copy_to_host_async(self) -> None:
         self._each("copy_to_host_async")
+
+    def start_stream(self) -> None:
+        self._each("start_stream")
 
     def materialize(self) -> list:
         return self._each("materialize")
@@ -200,9 +236,71 @@ def _host_buffer(shape, dtype, dev: torch.device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, pin_memory=dev.type == "cuda")
 
 
+def _hdr_words(Bp: int) -> int:
+    """Header words in front of the flat input buffer: Bp lane offsets (in
+    words), Bp frame counts, Bp active flags."""
+    return 3 * Bp
+
+
+def _stage_flat(streams: list, nfs: np.ndarray, pin: torch.device):
+    """The lanes' wire streams (uint8 arrays of whole u32 words, one per
+    lane) packed in lane order behind the header, in one host int32 buffer
+    (pinned for a card); the active flags are left 0 for the dispatch to
+    set. Returns (buffer, offsets in words, lengths in words)."""
+    Bp = len(streams)
+    words = np.array([len(v) // 4 for v in streams], np.int64)
+    offs = _hdr_words(Bp) + np.cumsum(words) - words
+    flat = _host_buffer((_hdr_words(Bp) + int(words.sum()),), torch.int32,
+                        pin)
+    f = flat.numpy()
+    f[:Bp] = offs
+    f[Bp:2 * Bp] = nfs
+    f[2 * Bp:3 * Bp] = 0
+    fb = f.view(np.uint8)
+    for v, o in zip(streams, offs):
+        fb[4 * o:4 * o + len(v)] = v
+    return flat, offs, words
+
+
+def _unpack_lanes(flat, offs_w, words_w, n: int, ch: int) -> torch.Tensor:
+    """Device half of the flat input: each lane's stream, sliced at the
+    offset the host staged it at, unpacked to float32 -> [Bp, n, ch]."""
+    return torch.stack([
+        wire_ops.unpack_device(flat[int(o):int(o) + int(w)], n, ch,
+                               WIRE_RICE_IN)
+        for o, w in zip(offs_w, words_w)])
+
+
+def _flatten_words(words: torch.Tensor, used: torch.Tensor,
+                   active: torch.Tensor):
+    """Compact every active lane's used output words into ONE stream at
+    exclusive-cumsum offsets of the used counts (inactive lanes 0, each
+    clipped to the row capacity), with no host sync: lane i's whole row is
+    written at its offset in increasing lane order, so the next lane's row
+    overwrites its unused tail; what lies past the total is never fetched.
+    words int32 [Bp, capW], used [Bp], active bool [Bp] -> (flat int32
+    [Bp * capW], total words 0-d). _lane_layout is its host replica."""
+    Bp, capW = words.shape
+    u = torch.where(active, used.to(torch.int64), 0).clamp(0, capW)
+    offs = torch.cumsum(u, 0) - u
+    flat = torch.empty(Bp * capW, dtype=words.dtype, device=words.device)
+    cols = torch.arange(capW, device=words.device)
+    for i in range(Bp):
+        flat.index_copy_(0, offs[i] + cols, words[i])
+    return flat, u.sum()
+
+
+def _lane_layout(used: np.ndarray, active: np.ndarray, capW: int):
+    """Host replica of _flatten_words' offset arithmetic (the same masking
+    and clipping, so the host's slices match the device layout word for
+    word): per-lane used words and exclusive-cumsum offsets."""
+    u = np.clip(np.where(active, used.astype(np.int64), 0), 0, capW)
+    return u, np.cumsum(u) - u
+
+
 def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
-                  state_csv_paths=None, devices=None,
-                  device="cuda") -> list:
+                  state_csv_paths=None, devices=None, device="cuda",
+                  transport: str = "auto") -> list:
     """Process a batch of files, one lane each, with one batched chunk
     step per chunk on `device`.
 
@@ -217,9 +315,22 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
     cpu); a list is used as given, repeats allowed. The lanes are padded
     to a multiple of the device count with idle lanes and lane block k
     runs on devices[k]; each lane's bytes are those of the single-device
-    run."""
+    run.
+
+    transport: "auto" (resolve_transport's rule: pcm24), "pcm24" or
+    "wire" (the same bytes; one device only, so devices= with it is an
+    error)."""
     from tomatis_tpu_torch.models.standard import (StandardParams,
                                                    build_controller)
+    if transport not in ("auto", "pcm24", "wire"):
+        raise ValueError(f"process_batch takes transport auto, pcm24 or "
+                         f"wire, got {transport!r}")
+    transport = resolve_transport(transport, True)[0]
+    wire = transport == "wire"
+    if wire and devices is not None:
+        raise ValueError("transport 'wire' runs on one device; the lane "
+                         "blocks of devices= take pcm24")
+    LAST_WIRE.clear()
     p = params or StandardParams()
     jobs = list(jobs)
     B = len(jobs)
@@ -260,7 +371,10 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
                                     device=dv)
             ctl = build_controller(p, sr, dv)
             steps[str(dv)] = dict(engine=eng, ctl=ctl,
-                                  fn=eng.make_batch_chunk_fn(ctl))
+                                  fn=eng.make_batch_chunk_fn(
+                                      ctl, transport=transport,
+                                      rice_out=resolve_rice_out(dv)
+                                      if wire else None))
     engine, controller = (steps[str(blocks[0])][k] for k in ("engine",
                                                              "ctl"))
 
@@ -290,6 +404,13 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         lanes.append(lane)
 
     hop, F, L = engine.hop, engine.frames_per_chunk, engine.chunk_input_len
+    capW = wire_ops.max_words(engine.emit_full, ch)
+    if wire and any(lane.failed is None and lane.n_frames > 8 * F
+                    for lane in lanes):
+        # long batches: the lanes' encodes and decodes go to the RPC
+        # worker process (its spawn overlaps the first reads); short ones
+        # keep the local codec
+        staging.ensure_rpc_worker()
 
     def read_window(lane, start, nf, sig_row):
         """One lane's window of the next chunk into its slot (a pool
@@ -297,51 +418,90 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         sig_row[:] = lane.rolling.window(start, L)
         lane.rolling.advance(start + nf * hop)
 
+    def read_encode(lane, start, nf):
+        """wire: one lane's window of the next chunk and its C++ encode
+        (a pool thread; the codec releases the interpreter lock, the RPC
+        worker takes one request at a time) -> (window, tagged item)."""
+        win = lane.rolling.window(start, L)
+        lane.rolling.advance(start + nf * hop)
+        if staging.rpc_available():
+            return win, staging.host_encode_offload(win, False,
+                                                    WIRE_RICE_IN)
+        return win, stage_encode(win, False)
+
+    # an idle lane's wire stream: all zeros, the same for every chunk
+    zero_stream = (stage_encode(np.zeros((L, ch), np.float32), False)[1]
+                   if wire else None)
+
     def produce():
-        """Producer thread: stage every lane's window of the next chunk
-        into one host tensor [B, L, C] (pinned for a card) and the lanes'
-        frame counts into an int32 [B] one. An exhausted or failed lane's
-        slot is zeros with 0 frames. A read error rides the item and fails
-        that lane on the calling thread; the producer closes the reader
-        of a lane it has finished with. Its wall time in the lanes' reads
-        goes to timings["read_s"]."""
+        """Producer thread: stage every lane's window of the next chunk,
+        the lanes' reads (FLAC decodes, and on wire their encodes) side by
+        side on the pool. pcm24, and wire when some lane's window is not
+        PCM_24-exact: one host tensor [B, L, C] of the windows (pinned for
+        a card) and an int32 [B] one of the frame counts. wire otherwise:
+        the flat buffer of _stage_flat. An exhausted or failed lane rides
+        with zeros (its wire stream the zero stream) and 0 frames. A read
+        error rides the item and fails that lane on the calling thread;
+        the producer closes the reader of a lane it has finished with. Its
+        wall time in the lanes' reads goes to timings["read_s"]. Yields
+        (item, frame counts, errors); item ("f32", sig, nv) or ("wire",
+        flat, offsets, lengths)."""
         pf0 = [0] * B
         dead = [lane.failed is not None for lane in lanes]
         pin = blocks[0]
         while True:
             _t = time.perf_counter()
-            sig = _host_buffer((Bp, L, ch), torch.float32, pin)
             nv = _host_buffer((Bp,), torch.int32, pin)
-            sig_np, nfs = sig.numpy(), nv.numpy()
+            nfs = nv.numpy()
             nfs[:] = 0
-            sig_np[B:] = 0.0      # the idle lanes that pad the blocks
-            errs, reads = {}, {}
+            sig = sig_np = None
+            if not wire:
+                sig = _host_buffer((Bp, L, ch), torch.float32, pin)
+                sig_np = sig.numpy()
+                sig_np[B:] = 0.0      # the idle lanes that pad the blocks
+            errs, reads, got = {}, {}, {}
             for i, lane in enumerate(lanes):
                 nf = min(F, lane.n_frames - pf0[i])
                 if dead[i] or lane.failed is not None or nf <= 0:
                     if not dead[i] and lane.failed is not None:
                         dead[i] = True
                         lane.close_input()
-                    sig_np[i] = 0.0
+                    if sig_np is not None:
+                        sig_np[i] = 0.0
                     continue
-                reads[i] = (nf, pool.submit(read_window, lane,
-                                            -lane.plan.pad + pf0[i] * hop,
-                                            nf, sig_np[i]))
+                start = -lane.plan.pad + pf0[i] * hop
+                reads[i] = (nf, pool.submit(read_encode, lane, start, nf)
+                            if wire else pool.submit(read_window, lane,
+                                                     start, nf, sig_np[i]))
             for i, (nf, fut) in reads.items():
                 try:
-                    fut.result()
+                    got[i] = fut.result()
                 except Exception as e:
                     errs[i] = e
                     dead[i] = True
                     lanes[i].close_input()
-                    sig_np[i] = 0.0
+                    if sig_np is not None:
+                        sig_np[i] = 0.0
                     continue
                 pf0[i] += nf
                 nfs[i] = nf
             timings["read_s"] += time.perf_counter() - _t
             if not nfs.any() and not errs:
                 return
-            yield sig, nv, errs
+            if not wire:
+                yield ("f32", sig, nv), nfs.copy(), errs
+            elif all(enc[0] == "wire" for _, enc in got.values()):
+                streams = [got[i][1][1] if i in got else zero_stream
+                           for i in range(Bp)]
+                yield (("wire",) + _stage_flat(streams, nfs, pin),
+                       nfs.copy(), errs)
+            else:
+                sig = _host_buffer((Bp, L, ch), torch.float32, pin)
+                sig_np = sig.numpy()
+                sig_np[:] = 0.0
+                for i, (win, _) in got.items():
+                    sig_np[i] = win
+                yield ("f32", sig, nv), nfs.copy(), errs
 
     # per lane block, on its device: the lanes' controller carries and
     # OLA tails, the controller's parameters and the output gain
@@ -358,17 +518,20 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
     timings = {"stage_s": 0.0, "dispatch_s": 0.0, "block_s": 0.0,
                "consume_s": 0.0, "finish_s": 0.0, "chunks": 0,
                "read_s": 0.0, "block_launches": [0] * D}
+    wire_acct = {"in_used": 0, "in_shipped": 0, "out_used": 0,
+                 "out_shipped": 0, "in_raw_chunks": 0}
     writers: dict = {}
 
     def route(i, c_frame0, c_nf, payload, aux, out_dev):
-        """Lane i's writer thread: route one chunk; an error fails the
-        lane alone and closes its output."""
+        """Lane i's writer thread: take one chunk's PCM_24 bytes from
+        payload() (on wire the lane's decode) and route them; an error
+        fails the lane alone and closes its output."""
         lane = lanes[i]
         if lane.failed is not None:
             return
         t0 = time.perf_counter()
         try:
-            lane.consume(c_frame0, c_nf, payload, aux, out_dev)
+            lane.consume(c_frame0, c_nf, payload(), aux, out_dev)
         except Exception as e:
             lane.fail(e)
             lane.close_output()
@@ -386,23 +549,72 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
             lane.close_output()
         lane.write_s += time.perf_counter() - t0
 
+    def wire_payloads(host, act):
+        """wire: lane i -> a callable decoding its slice of the fetched
+        stream (the offsets replicate the device compaction; the RPC
+        worker decodes when it is up)."""
+        aux_np, used_np, flat_np = host
+        used_w, offs_w = _lane_layout(used_np, act, capW)
+        fb = flat_np.view(np.uint8)
+        dec = (staging.decode_pcm24_offload if staging.rpc_available()
+               else wirecodec.decode_pcm24)
+        wire_acct["out_shipped"] += flat_np.nbytes
+        out = {}
+        for i, lane in enumerate(lanes):
+            if lane.failed is None and act[i]:
+                wire_acct["out_used"] += 4 * int(used_w[i])
+                src = fb[4 * offs_w[i]:4 * (offs_w[i] + used_w[i])]
+                out[i] = (lambda src=src: dec(src, engine.emit_full, ch),
+                          aux_np[i])
+        return out
+
     def pipe_finish(ck):
         """S3: wait the readback out and hand each active lane's rows to
         its writer thread."""
-        frame0s, nfs_c, rb, out_devs = ck["ready"]
+        frame0s, nfs_c, act_c, rb, out_devs = ck["ready"]
         parts = rb.materialize()
-        for i, lane in enumerate(lanes):
-            if lane.failed is None and nfs_c[i] > 0:
-                k, j = divmod(i, Bl)
-                pcm_np, aux_np = parts[k]
-                writers[i].submit(
-                    lambda i=i, j=j, k=k, pcm_np=pcm_np, aux_np=aux_np:
-                    route(i, frame0s[i], int(nfs_c[i]), pcm_np[j],
-                          aux_np[j], out_devs[k][j]))
+        if wire:
+            rows = wire_payloads(parts[0], act_c)
+        else:
+            rows = {}
+            for i, lane in enumerate(lanes):
+                if lane.failed is None and nfs_c[i] > 0:
+                    k, j = divmod(i, Bl)
+                    pcm_np, aux_np = parts[k]
+                    rows[i] = (lambda pcm=pcm_np[j]: pcm, aux_np[j])
+        for i, (payload, aux) in rows.items():
+            k, j = divmod(i, Bl)
+            writers[i].submit(
+                lambda i=i, payload=payload, aux=aux, od=out_devs[k][j]:
+                route(i, frame0s[i], int(nfs_c[i]), payload, aux, od))
 
     def join_writers():
         for w in writers.values():
             w.check(join=True)
+
+    def upload(item, act):
+        """Calling thread: each lane block's (signal, n_valid, active) on
+        its device; a wire item is unpacked there, its act words set
+        first."""
+        if item[0] == "wire":
+            _, flat, offs, words = item
+            flat.numpy()[2 * Bp:3 * Bp] = act
+            wire_acct["in_used"] += 4 * int(words.sum())
+            wire_acct["in_shipped"] += 4 * flat.numel()
+            dv = blocks[0]
+            flat_d = flat.to(dv, non_blocking=True)
+            return [(_unpack_lanes(flat_d, offs, words, L, ch),
+                     flat_d[Bp:2 * Bp], flat_d[2 * Bp:3 * Bp] != 0)]
+        _, sig, nv = item
+        if wire:
+            wire_acct["in_raw_chunks"] += 1
+            act_h = _host_buffer((Bp,), torch.bool, blocks[0])
+            act_h.numpy()[:] = act
+            act_d = act_h.to(blocks[0], non_blocking=True)
+        return [(sig[k * Bl:(k + 1) * Bl].to(dv, non_blocking=True),
+                 nv[k * Bl:(k + 1) * Bl].to(dv, non_blocking=True),
+                 act_d if wire else None)
+                for k, dv in enumerate(blocks)]
 
     prefetch = None
     pool = ThreadPoolExecutor(max_workers=min(8, max(1, B)))
@@ -416,36 +628,45 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         # card), so the lanes' encodes overlap the next chunks' decodes;
         # a batch of long lanes has few chunks (4 at 150 s), and the
         # single-file depth of 3 would hold the writers back until the
-        # 4th chunk
-        pipe = StagedPipeline(lambda ck: None, pipe_finish, depth=1)
+        # 4th chunk. S2 fetches the wire stream (a no-op on pcm24).
+        pipe = StagedPipeline(lambda ck: ck["ready"][3].start_stream(),
+                              pipe_finish, depth=1)
         while True:
             _t = time.perf_counter()
             try:
-                sig, nv, errs = prefetch.get()
+                item, nfs, errs = prefetch.get()
             except StopIteration:
                 break
             for i, e in errs.items():
                 lanes[i].fail(e)
                 writers[i].submit(lanes[i].close_output)
-            nfs = nv.numpy().copy()
             if not nfs.any():
                 continue
             if all(lane.failed is not None for lane in lanes):
                 break   # nothing left to route; drop the staged chunk
-            staged = [(sig[k * Bl:(k + 1) * Bl].to(dv, non_blocking=True),
-                       nv[k * Bl:(k + 1) * Bl].to(dv, non_blocking=True))
-                      for k, dv in enumerate(blocks)]
+            # dispatch-time active mask: it decides both the device's
+            # compaction of the wire output and the host's slices of it (a
+            # lane failing after this point ships its bytes once, unrouted)
+            act = np.array([i < B and nfs[i] > 0 and lanes[i].failed is None
+                            for i in range(Bp)])
+            staged = upload(item, act)
             timings["stage_s"] += time.perf_counter() - _t
             _t = time.perf_counter()
             fetch, out_devs = [], []
-            for k, (dv, (sig_d, nv_d)) in enumerate(zip(blocks, staged)):
+            for k, (dv, (sig_d, nv_d, act_d)) in enumerate(zip(blocks,
+                                                                staged)):
                 rows = slice(k * Bl, (k + 1) * Bl)
-                (pcm, aux, out_dev, carries[rows], out_tail_b[k],
+                (payload, aux, out_dev, carries[rows], out_tail_b[k],
                  w_tail_b[k]) = steps[str(dv)]["fn"](
                     sig_d, nv_d, carries[rows], out_tail_b[k], w_tail_b[k],
                     params[k], gains[k])
                 timings["block_launches"][k] += 1
-                fetch.append((dv, [pcm, aux]))
+                if wire:
+                    words, used = payload
+                    fetch.append((dv, [aux, used],
+                                  _flatten_words(words, used, act_d)))
+                else:
+                    fetch.append((dv, [payload, aux], None))
                 out_devs.append(out_dev)
             rb = _BlockReadback(fetch)
             timings["dispatch_s"] += time.perf_counter() - _t
@@ -453,7 +674,7 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
             frame0s = [lane.frame0 for lane in lanes]
             for i, lane in enumerate(lanes):
                 lane.frame0 += int(nfs[i])
-            pipe.push((frame0s, nfs, rb, out_devs), rb)
+            pipe.push((frame0s, nfs, act, rb, out_devs), rb)
 
             _t = time.perf_counter()
             pipe.promote()
@@ -483,6 +704,9 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         LAST_TIMINGS["devices"] = [str(dv) for dv in blocks]
         LAST_TIMINGS["lane_write_s"] = [round(lane.write_s, 4)
                                         for lane in lanes]
+        LAST_TIMINGS["transport"] = transport
+        if wire:
+            LAST_WIRE.update(wire_acct)
     finally:
         # writers first (they may still hold an output), then the
         # producer (it may still hold a reader); an exception escaping the
