@@ -156,18 +156,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
     bands, music_err,
     noise_delta, CSV rows and the threshold estimate within 1e-3 dB; which
     PNGs were written (none where matplotlib does not import);
-28. process-batch on wire: (a) phase 18's eight FLAC lanes at B = 8
-    through process_batch(transport="wire"), in turns with pcm24 (pcm24,
-    wire, wire, pcm24): every lane's FLAC and state CSV equal the pcm24
-    run's byte for byte, one batched launch per batch chunk and no
-    single-file one; walls, aggregate realtime factor, LAST_TIMINGS,
-    LAST_WIRE (shipped/used both ways), peak device memory; the RPC
-    worker down (4 chunks). (b) the 10-minute FLAC of phase 15 beside the
-    60 s FLAC on wire, then pcm24: bytes equal, the RPC worker up and
-    used for the encodes and decodes. (c) a 20 s FLOAT WAV that is not
-    PCM_24-exact beside the 60 s FLAC: its chunks ship raw floats, the
-    later ones the codec, bytes equal to pcm24's. No call reaches the
-    numpy wire codec in this process;
+28. process-batch on wire, which process_batch picks on a link slower
+    than WIRE_BATCH_LINK_MBPS: the rule must keep pcm24 on this card's
+    link, and the wire runs raise the threshold past it. (a) phase 18's
+    eight FLAC lanes at B = 8, in turns with pcm24 (pcm24, wire, wire,
+    pcm24): every lane's FLAC and state CSV equal the pcm24 run's byte
+    for byte, one batched launch per batch chunk and no single-file one;
+    walls, aggregate realtime factor, LAST_TIMINGS, LAST_WIRE
+    (shipped/used both ways), peak device memory, and the link rate below
+    which wire's saved bytes pay for its extra wall; the RPC worker down
+    (4 chunks). (b) the 10-minute FLAC of phase 15 beside the 60 s FLAC
+    on wire, with the RPC worker and with it held down (the local codec)
+    in turns (RPC, local, local, RPC), then pcm24: bytes equal, the
+    worker up and used in its runs and unused in the others. (c) a 20 s
+    FLOAT WAV that is not PCM_24-exact beside the 60 s FLAC: its chunks
+    ship raw floats, the later ones the codec, bytes equal to pcm24's. No
+    call reaches the numpy wire codec in this process;
 29. prints the card line, the kernels JSON line and, last, the result
     line {"ok": true, "device": {...}}. Each path is driven with the
     launch counts set to 0 just before it and read just after:
@@ -1438,6 +1442,7 @@ def check_batched_tail(torch, cuda_ola):
 
     cases = [  # B, F, C, n_fft, hop, n_valid per lane, norm
         (1, 1024, 2, 4096, 2048, [1024], "eps"),
+        (2, 1024, 2, 4096, 2048, [1024, 700], "eps"),   # phase 28's B
         (4, 1024, 2, 4096, 2048, [1024, 0, 700, 1024], "eps"),
         (8, 1024, 2, 4096, 2048, [1024, 0, 700, 1024, 1, 1024, 512, 0],
          "eps"),
@@ -2127,19 +2132,35 @@ def sharded_paths(torch, cuda_ola, audio, standard, x, ip, op, cp,
     return launches
 
 
+@contextlib.contextmanager
+def batch_link(batch, wire: bool):
+    """process_batch's transport rule as it stands (False: this card's link
+    rate against WIRE_BATCH_LINK_MBPS, which keeps pcm24), or with the
+    threshold raised past any link (True: the rule picks wire, as on a
+    host whose link is slower than the threshold)."""
+    keep = batch.WIRE_BATCH_LINK_MBPS
+    if wire:
+        batch.WIRE_BATCH_LINK_MBPS = float("inf")
+    try:
+        yield
+    finally:
+        batch.WIRE_BATCH_LINK_MBPS = keep
+
+
 def wire_batch_run(torch, cuda_ola, batch, p, jobs, csvs, tr: str,
                    what: str):
     """One process_batch call on the card with the launch counts set to 0
     just before it and read just after (one batched launch per batch
-    chunk, nothing else). Returns (stats, wall, LAST_TIMINGS, LAST_WIRE,
-    counts, peak device memory)."""
+    chunk, nothing else); tr is the transport the rule must pick. Returns
+    (stats, wall, LAST_TIMINGS, LAST_WIRE, counts, peak device memory)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(cuda_ola)
-    t0 = time.perf_counter()
-    stats = batch.process_batch(jobs, p, state_csv_paths=csvs,
-                                device="cuda", transport=tr)
-    wall = time.perf_counter() - t0
+    with batch_link(batch, tr == "wire"):
+        t0 = time.perf_counter()
+        stats = batch.process_batch(jobs, p, state_csv_paths=csvs,
+                                    device="cuda")
+        wall = time.perf_counter() - t0
     lt, lw = dict(batch.LAST_TIMINGS), dict(batch.LAST_WIRE)
     counts = read_batch_counts(cuda_ola, lt["chunks"], what)
     if lt["transport"] != tr or bool(lw) != (tr == "wire"):
@@ -2152,13 +2173,24 @@ def wire_batch_run(torch, cuda_ola, batch, p, jobs, csvs, tr: str,
             torch.cuda.max_memory_allocated())
 
 
+def pcm24_link_bytes(p, chunks: int, lanes: int, ch: int = 2,
+                     F: int = 1024) -> int:
+    """The bytes the pcm24 batch moves over the link: each batch chunk's
+    float32 [B, L, C] windows up and its PCM_24 [B, F*hop, C] emit down
+    (aux rows, which wire ships too, left out)."""
+    L = (F - 1) * p.hop + p.n_fft
+    return chunks * lanes * (L * ch * 4 + F * p.hop * ch * 3)
+
+
 def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
-    """Phase 28: process_batch(transport="wire") on the card against the
-    pcm24 batch of the same call, byte for byte: (a) phase 18's eight FLAC
-    lanes at B = 8, in turns with pcm24, twice each; (b) the 10-minute
-    FLAC of phase 15 beside the 60 s one, long enough to start the RPC
-    worker; (c) a FLOAT WAV lane that is not PCM_24-exact beside a PCM_24
-    one (the raw-float fallback)."""
+    """Phase 28: process_batch on wire (the threshold raised past this
+    card's link) against the pcm24 batch of the same call, byte for byte:
+    (a) phase 18's eight FLAC lanes at B = 8, in turns with pcm24, twice
+    each, and the link rate at which wire's saved bytes would pay for its
+    extra wall; (b) the 10-minute FLAC of phase 15 beside the 60 s one,
+    long enough to start the RPC worker, in turns with the local codec
+    (the worker held down); (c) a FLOAT WAV lane that is not PCM_24-exact
+    beside a PCM_24 one (the raw-float fallback)."""
     from tomatis_tpu_torch.engine import staging
     from tomatis_tpu_torch.io import wirecodec
     from tomatis_tpu_torch.ops import wire as wire_ops
@@ -2167,6 +2199,13 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
     if not wirecodec.available():
         fail("wire batch: the native wire codec (csrc/wire.cpp) is not "
              "loaded")
+    link = batch._link_mbps(torch.device("cuda"))
+    if batch.batch_transport([torch.device("cuda")], False) != "pcm24":
+        fail(f"wire batch: the rule picks wire on this card's link "
+             f"({link:.0f} MB/s against {batch.WIRE_BATCH_LINK_MBPS} MB/s)")
+    log(f"wire batch: this card's read-back link {link:.0f} MB/s against "
+        f"the wire threshold {batch.WIRE_BATCH_LINK_MBPS:.0f} MB/s: the "
+        f"rule keeps pcm24; the wire runs below raise the threshold")
     # the numpy codec must not run: count any call into it
     numpy_calls = [0]
     np_enc, np_dec = wire_ops.encode_np, wire_ops.decode_np
@@ -2180,6 +2219,7 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
     rpc_calls = {"encode": 0, "decode": 0}
     enc_off = staging.host_encode_offload
     dec_off = staging.decode_pcm24_offload
+    ensure = staging.ensure_rpc_worker
 
     def host_encode_offload(*a):
         rpc_calls["encode"] += 1
@@ -2202,9 +2242,9 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
                      f"the pcm24 batch's")
 
     def ratios(lw):
-        return (f"in shipped/used {lw['in_shipped'] / lw['in_used']:.5f} "
+        return (f"in shipped/used {lw['in_shipped'] / lw['in_used']:.7f} "
                 f"({lw['in_used']} B used), out shipped/used "
-                f"{lw['out_shipped'] / lw['out_used']:.5f} "
+                f"{lw['out_shipped'] / lw['out_used']:.7f} "
                 f"({lw['out_used']} B used)")
 
     try:
@@ -2212,7 +2252,7 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
         # chunks, under the RPC worker's 8)
         staging.shutdown_workers()
         ins = [os.path.join(tmp, f"lane{i}.flac") for i in range(8)]
-        outs = {}
+        outs, walls, shipped = {}, {"pcm24": [], "wire": []}, {}
         for k, tr in enumerate(("pcm24", "wire", "wire", "pcm24")):
             d = os.path.join(tmp, f"wire_b8_{k}")
             os.makedirs(d)
@@ -2224,6 +2264,10 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
                 f"wire batch (a) run {k + 1} ({tr})")
             if tr == "wire":
                 launches.setdefault("batch_wire_b8", c)
+                shipped["wire"] = lw["in_shipped"] + lw["out_shipped"]
+            else:
+                shipped["pcm24"] = pcm24_link_bytes(p, lt["chunks"], 8)
+            walls[tr].append(wall)
             outs.setdefault(tr, (jobs, csvs))
             compare(f"wire batch (a) run {k + 1}", jobs, csvs,
                     *outs["pcm24"])
@@ -2239,39 +2283,69 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
         if staging.rpc_available() or any(rpc_calls.values()):
             fail(f"wire batch (a): the RPC worker ran ({rpc_calls}); a "
                  f"batch of 4 chunks keeps the local codec")
+        saved = shipped["pcm24"] - shipped["wire"]
+        extra = statistics.mean(walls["wire"]) - statistics.mean(
+            walls["pcm24"])
+        log(f"wire batch (a): link bytes a run pcm24 {shipped['pcm24']}, "
+            f"wire {shipped['wire']} ({saved} B saved); wire's wall "
+            f"{extra:+.3f} s against pcm24's by the means; "
+            + (f"wire pays below a link of {saved / 1e6 / extra:.0f} MB/s "
+               f"(threshold {batch.WIRE_BATCH_LINK_MBPS:.0f})"
+               if extra > 0 else "wire was not slower in this call"))
 
-        # (b) the 10-minute FLAC beside a 60 s lane: 15 chunks, so the
-        # batch starts the RPC worker for its encodes and decodes
+        # (b) the 10-minute FLAC beside a 60 s lane: 14 chunks, so the
+        # batch starts the RPC worker for its encodes and decodes; in
+        # turns with the worker held down (the local codec), then pcm24
         ins = [os.path.join(tmp, "long.flac"), os.path.join(tmp, "in.flac")]
-        outs = {}
-        for tr in ("wire", "pcm24"):
-            d = os.path.join(tmp, f"wire_long_{tr}")
+        outs, walls = {}, {"rpc": [], "local": []}
+        for k, mode in enumerate(("rpc", "local", "local", "rpc",
+                                  "pcm24")):
+            tr = "pcm24" if mode == "pcm24" else "wire"
+            d = os.path.join(tmp, f"wire_long_{k}")
             os.makedirs(d)
             jobs = [(ip, os.path.join(d, f"out{j}.flac"))
                     for j, ip in enumerate(ins)]
             csvs = [os.path.join(d, f"st{j}.csv") for j in range(2)]
             staging.shutdown_workers()
-            stats, wall, lt, lw, c, peak = wire_batch_run(
-                torch, cuda_ola, batch, p, jobs, csvs, tr,
-                f"wire batch (b) {tr}")
-            outs[tr] = (jobs, csvs)
-            if tr == "wire":
-                launches["batch_wire_long"] = c
-                if not staging.rpc_available() or not all(
-                        rpc_calls.values()):
-                    fail(f"wire batch (b): the RPC worker was not used "
-                         f"({rpc_calls}, up {staging.rpc_available()})")
+            staging.ensure_rpc_worker = (
+                (lambda: None) if mode == "local" else ensure)
+            before = dict(rpc_calls)
+            try:
+                stats, wall, lt, lw, c, peak = wire_batch_run(
+                    torch, cuda_ola, batch, p, jobs, csvs, tr,
+                    f"wire batch (b) run {k + 1} ({mode})")
+            finally:
+                staging.ensure_rpc_worker = ensure
+            calls = {n: rpc_calls[n] - before[n] for n in rpc_calls}
+            outs.setdefault(mode, (jobs, csvs))
+            if mode == "rpc":
+                launches.setdefault("batch_wire_long", c)
+                if not staging.rpc_available() or not all(calls.values()):
+                    fail(f"wire batch (b) run {k + 1}: the RPC worker was "
+                         f"not used ({calls}, up {staging.rpc_available()})")
+            elif any(calls.values()):
+                fail(f"wire batch (b) run {k + 1}: the RPC worker ran "
+                     f"({calls}) with the worker held down")
+            if mode in walls:
+                walls[mode].append(wall)
             audio_s = sum(s["n_frames"] * p.hop / SR for s in stats)
-            log(f"wire batch (b), {tr}: the 10-minute FLAC and a 60 s lane,"
-                f" {lt['chunks']} batch chunks, {c['chunk_tail_batched']} "
-                f"batched launches; wall {wall:.3f} s, aggregate realtime "
-                f"factor {audio_s / wall:.2f}x, peak device memory "
+            log(f"wire batch (b) run {k + 1}, {mode}: the 10-minute FLAC "
+                f"and a 60 s lane, {lt['chunks']} batch chunks, "
+                f"{c['chunk_tail_batched']} batched launches; wall "
+                f"{wall:.3f} s, aggregate realtime factor "
+                f"{audio_s / wall:.2f}x, peak device memory "
                 f"{peak / 1e9:.3f} GB"
-                + (f", RPC worker up, its calls {rpc_calls}, {ratios(lw)}"
-                   if lw else "") + f"; LAST_TIMINGS {lt}")
-        compare("wire batch (b)", *outs["wire"], *outs["pcm24"])
-        log("wire batch (b): both lanes' FLACs and state CSVs equal the "
-            "pcm24 run's byte for byte")
+                + (f", RPC worker calls {calls}, {ratios(lw)}" if lw else "")
+                + f"; LAST_TIMINGS {lt}")
+        for mode in ("rpc", "local"):
+            compare(f"wire batch (b) {mode}", *outs[mode], *outs["pcm24"])
+        d_local = (statistics.mean(walls["local"])
+                   - statistics.mean(walls["rpc"]))
+        log(f"wire batch (b): both lanes' FLACs and state CSVs equal the "
+            f"pcm24 run's byte for byte on the RPC worker and on the local "
+            f"codec; walls RPC {[round(w, 3) for w in walls['rpc']]} s, "
+            f"local {[round(w, 3) for w in walls['local']]} s, "
+            f"local {d_local:+.3f} s against RPC by the means")
 
         # (c) a FLOAT WAV that is not PCM_24-exact (20 s) beside the 60 s
         # PCM_24 FLAC: its chunks ship raw floats, the last one the codec

@@ -1,5 +1,7 @@
-"""The port's wire batch (tomatis_tpu_torch/parallel/batch.py,
-transport="wire") on the CPU: every lane's file and state CSV equal the
+"""The port's wire batch (tomatis_tpu_torch/parallel/batch.py, which
+process_batch picks on a link slower than WIRE_BATCH_LINK_MBPS; here the
+link rate is held below it) on the CPU: every lane's file and state CSV
+equal the
 port's pcm24 batch byte for byte (the wire payload is the pcm24 launch's
 bytes, losslessly compressed, so the comparison is exact); against the
 JAX package's process_batch, whose single-device default is wire, samples
@@ -7,7 +9,9 @@ within 4 LSB (the standing FFT difference of ROADMAP.md §3), states and
 frame indices equal, levels within 1e-4 dB, the input link bytes equal
 (the same C++ encoder on the same windows) and the output link bytes
 within 1% (the same device pack on PCM_24 ints up to 4 LSB apart)."""
+import contextlib
 import csv
+import math
 
 import numpy as np
 import pytest
@@ -31,7 +35,20 @@ FPC = 16
 LSB = 4
 LEVEL_ATOL = 1e-4
 OUT_USED_RTOL = 0.01
+SLOW_LINK_MBPS = 100.0      # under WIRE_BATCH_LINK_MBPS: the rule picks wire
 P = StandardParams(require_48k_stereo=False)
+
+
+@contextlib.contextmanager
+def _link(mbps):
+    """process_batch's view of the device's link rate held at mbps (a CPU
+    device has none: infinite, so the rule keeps pcm24)."""
+    keep = batch._link_mbps
+    batch._link_mbps = lambda dev: mbps
+    try:
+        yield
+    finally:
+        batch._link_mbps = keep
 
 
 @pytest.fixture(autouse=True)
@@ -61,15 +78,17 @@ def _files(tmp_path, seconds, seed0=0, ext="flac"):
 
 
 def _run(tmp_path, ins, tag, transport, fpc=FPC, csv_out=True, **kw):
-    """process_batch on the CPU into tmp_path/tag; returns (stats, outs,
-    csvs)."""
+    """process_batch on the CPU into tmp_path/tag, on a link slow enough
+    for wire (transport "wire") or with the CPU's own (none: pcm24);
+    returns (stats, outs, csvs)."""
     d = tmp_path / tag
     d.mkdir(exist_ok=True)
     outs = [d / f"out{i}{ip.suffix}" for i, ip in enumerate(ins)]
     csvs = [d / f"st{i}.csv" for i in range(len(ins))] if csv_out else None
-    stats = process_batch(list(zip(ins, outs)), P, frames_per_chunk=fpc,
-                          state_csv_paths=csvs, device="cpu",
-                          transport=transport, **kw)
+    with _link(SLOW_LINK_MBPS if transport == "wire" else math.inf):
+        stats = process_batch(list(zip(ins, outs)), P, frames_per_chunk=fpc,
+                              state_csv_paths=csvs, device="cpu", **kw)
+    assert batch.LAST_TIMINGS["transport"] == transport
     return stats, outs, csvs
 
 
@@ -166,8 +185,8 @@ def test_wire_float_fallback_matches_single(tmp_path):
 def test_wire_link_bytes_accounting(tmp_path):
     """tests/test_batch.py::test_batch_link_bytes_accounting's bounds, and
     the port's exact overheads: the input ships the lanes' streams and the
-    3-word-per-lane header, the output exactly the active lanes' used
-    words."""
+    2-word-per-lane header (n_valid, active), the output exactly the
+    active lanes' used words."""
     ins = _files(tmp_path, [12.0] * 4, ext="wav")
     stats, _, _ = _run(tmp_path, ins, "wire", "wire", fpc=64,
                        csv_out=False)
@@ -176,7 +195,7 @@ def test_wire_link_bytes_accounting(tmp_path):
     assert w["in_used"] > 0 and w["out_used"] > 0
     assert w["in_shipped"] < w["in_used"] * 1.06, w
     assert w["out_shipped"] < w["out_used"] * 1.03, w
-    assert w["in_shipped"] - w["in_used"] == chunks * 4 * 3 * 4, w
+    assert w["in_shipped"] - w["in_used"] == chunks * 4 * 2 * 4, w
     assert w["out_shipped"] == w["out_used"], w
 
 
@@ -311,29 +330,52 @@ def test_wire_midstream_failure_isolated(tmp_path, monkeypatch, what, msg):
 
 
 def test_wire_refuses_devices_and_auto_is_pcm24(tmp_path):
+    """Lane blocks (devices=) keep pcm24 on any link, as the reference's
+    sharded lanes do; the CPU's own link (none) keeps pcm24 and leaves
+    LAST_WIRE empty; both write the wire run's bytes."""
     ins = _files(tmp_path, [1.0, 0.7])
-    jobs = [(ip, tmp_path / f"o{i}.flac") for i, ip in enumerate(ins)]
-    with pytest.raises(ValueError, match="one device"):
-        process_batch(jobs, P, frames_per_chunk=FPC, devices=2,
-                      device="cpu", transport="wire")
-    with pytest.raises(ValueError, match="transport"):
-        process_batch(jobs, P, frames_per_chunk=FPC, device="cpu",
-                      transport="f32")
     _run(tmp_path, ins, "wire", "wire", csv_out=False)
     assert batch.LAST_WIRE
-    _, outs, _ = _run(tmp_path, ins, "auto", "auto", csv_out=False)
+    d = tmp_path / "blocks"
+    d.mkdir()
+    outs = [d / f"out{i}.flac" for i in range(2)]
+    with _link(SLOW_LINK_MBPS):
+        stats = process_batch(list(zip(ins, outs)), P, frames_per_chunk=FPC,
+                              devices=2, device="cpu")
     assert batch.LAST_TIMINGS["transport"] == "pcm24"
     assert batch.LAST_WIRE == {}
-    for out in outs:
+    assert all(s["failed"] is None for s in stats)
+    _, outs_a, _ = _run(tmp_path, ins, "auto", "pcm24", csv_out=False)
+    assert batch.LAST_WIRE == {}
+    for out, out_a in zip(outs, outs_a):
         assert _same_bytes(out, tmp_path / "wire" / out.name)
+        assert _same_bytes(out_a, tmp_path / "wire" / out.name)
+
+
+@pytest.mark.parametrize("mbps,sharded,want", [
+    (SLOW_LINK_MBPS, False, "wire"),
+    (batch.WIRE_BATCH_LINK_MBPS, False, "pcm24"),
+    (5.0e4, False, "pcm24"),
+    (SLOW_LINK_MBPS, True, "pcm24"),
+], ids=["slow", "at-threshold", "pcie", "lane-blocks"])
+def test_batch_transport_rule(mbps, sharded, want):
+    """batch_transport: wire only on one device whose link is slower than
+    WIRE_BATCH_LINK_MBPS."""
+    with _link(mbps):
+        assert batch.batch_transport([torch.device("cpu")], sharded) == want
+
+
+def test_batch_transport_cpu_has_no_link():
+    assert batch._link_mbps(torch.device("cpu")) == math.inf
+    assert batch.batch_transport([torch.device("cpu")], False) == "pcm24"
 
 
 def test_wire_batch_needs_the_card_unless_told(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this checks the behaviour of a host without a card")
     ip = _files(tmp_path, [0.5])[0]
-    with pytest.raises(RuntimeError, match="CUDA"):
-        process_batch([(ip, tmp_path / "o.flac")], P, transport="wire")
+    with _link(SLOW_LINK_MBPS), pytest.raises(RuntimeError, match="CUDA"):
+        process_batch([(ip, tmp_path / "o.flac")], P)
 
 
 def test_batch_chunk_fn_wire_is_single_wire_step_per_lane():
@@ -378,8 +420,8 @@ def test_batch_chunk_fn_wire_is_single_wire_step_per_lane():
 def test_flat_staging_unpacks_every_lane_exactly():
     """_stage_flat + _unpack_lanes give back each lane's window bit for
     bit: packed streams, the raw escape (full-scale noise) and the zero
-    stream, each at its offset behind the header, which holds the offsets
-    and frame counts."""
+    stream, each at its offset behind the header, which holds the frame
+    counts and the active flags (0 until the dispatch sets them)."""
     rng = np.random.default_rng(9)
     n, ch = 3000, 2
     wins = [np.rint(0.3 * rng.standard_normal((n, ch)) * 2**20) / 2**23,
@@ -391,8 +433,8 @@ def test_flat_staging_unpacks_every_lane_exactly():
     nfs = np.array([7, 3, 0, 7], np.int32)
     flat, offs, words = batch._stage_flat(streams, nfs, torch.device("cpu"))
     f = flat.numpy()
-    assert list(f[:4]) == list(offs) and list(f[4:8]) == list(nfs)
-    assert offs[0] == batch._hdr_words(4)
+    assert list(f[:4]) == list(nfs) and not f[4:8].any()
+    assert offs[0] == 2 * 4
     assert len(f) == offs[-1] + words[-1]
     sig = batch._unpack_lanes(flat, offs, words, n, ch)
     for b, w in enumerate(wins):
@@ -400,15 +442,19 @@ def test_flat_staging_unpacks_every_lane_exactly():
 
 
 def test_process_batch_cli_wire(tmp_path, capsys):
+    """The CLI on a link slow enough for wire writes the bytes it writes
+    on the CPU's own link (pcm24)."""
     ins = [str(ip) for ip in _files(tmp_path, [1.2, 0.8], seed0=6)]
     outs = {}
-    for tr in ("pcm24", "wire"):
+    for tr, mbps in (("pcm24", math.inf), ("wire", SLOW_LINK_MBPS)):
         outs[tr] = tmp_path / tr
-        rc = cli_main.main(["process-batch", "-i", *ins, "-o", str(outs[tr]),
-                            "--frames_per_chunk", str(FPC), "--device",
-                            "cpu", "--transport", tr])
+        with _link(mbps):
+            rc = cli_main.main(["process-batch", "-i", *ins, "-o",
+                                str(outs[tr]), "--frames_per_chunk",
+                                str(FPC), "--device", "cpu"])
         out = capsys.readouterr().out
-        assert rc == 0 and "2/2 files" in out and f"transport {tr}" in out
+        assert rc == 0 and "2/2 files" in out
+        assert batch.LAST_TIMINGS["transport"] == tr
     for i in range(2):
         name = f"in{i}_tomatis.flac"
         assert _same_bytes(outs["wire"] / name, outs["pcm24"] / name)

@@ -6,8 +6,7 @@ batched chunk-tail launch per chunk, per-file failure isolation.
 Takes the reference flags (tomatis_tpu/cli/process_batch.py); --device
 picks the card (default cuda). --devices N shards the lanes over the first
 N cards, or puts N lane blocks on the one device that --device names
-(cuda:0, cpu). --transport wire compresses the link both ways (one
-device only); the files are the pcm24 run's bytes.
+(cuda:0, cpu).
 """
 from __future__ import annotations
 
@@ -42,16 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = single device)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, cuda:N or cpu)")
-    ap.add_argument("--transport", default="auto",
-                    choices=["auto", "pcm24", "wire"],
-                    help="device<->host transport (auto = pcm24; wire "
-                         "compresses both ways, one device only; same "
-                         "output bytes)")
     return ap
 
 
 def run(args) -> int:
-    from tomatis_tpu_torch.engine.streaming import resolve_transport
     from tomatis_tpu_torch.models.standard import StandardParams
     from tomatis_tpu_torch.parallel.batch import process_batch
     p = StandardParams(
@@ -77,8 +70,7 @@ def run(args) -> int:
     t0 = time.perf_counter()
     stats = process_batch(jobs, p, frames_per_chunk=args.frames_per_chunk,
                           state_csv_paths=csvs,
-                          devices=args.devices or None, device=args.device,
-                          transport=args.transport)
+                          devices=args.devices or None, device=args.device)
     dt = time.perf_counter() - t0
     ok = [s for s in stats if s["failed"] is None]
     failed = [s for s in stats if s["failed"] is not None]
@@ -91,8 +83,7 @@ def run(args) -> int:
         else:
             print(f"[FAIL] {s['in_path']}: {s['failed']}")
     print(f"{len(ok)}/{len(stats)} files, ~{audio_sec:.0f}s audio in "
-          f"{dt:.1f}s -> {audio_sec / dt:.1f}x realtime aggregate, "
-          f"transport {resolve_transport(args.transport, True)[0]}")
+          f"{dt:.1f}s -> {audio_sec / dt:.1f}x realtime aggregate")
     return 0 if not failed else 1
 
 

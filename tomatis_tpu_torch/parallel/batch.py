@@ -28,20 +28,25 @@ own batched launch per chunk on devices[k], with no traffic between
 devices (the reference's shard_map has none). A device may repeat: lane
 blocks then take turns on it.
 
-transport="wire" (one device only, as in the reference) compresses the
-link both ways with the wire codec. Input: each active lane's window is
-C++-encoded on the producer, idle lanes take one all-zeros stream, and the
-lanes' streams (whole u32 words) go into ONE pinned int32 buffer behind a
-header of 3*B words (offsets, n_valid, active): one upload per batch
-chunk. The
-device unpacks each lane at its offset (the host knows it from staging).
-A chunk in which some lane is not PCM_24-exact ships the lanes' raw
-floats instead, as the pcm24 batch does. Output: the batched step packs
-each lane's PCM_24 ints on the device, and the active lanes' used words
-are compacted into one flat stream at exclusive-cumsum offsets. S1 reads
-aux and used [B], S2 fetches flat[:total], and each lane's writer thread
-decodes its slice with the native codec before routing it. LAST_WIRE
-holds the link bytes of the last wire call.
+On one device the batch can compress the link both ways with the wire
+codec, which the reference runs on every single-device batch (its
+`wire = mesh_devs is None`). The port takes it where the reference's reason
+holds, a link slow enough that the bytes the codec saves take longer to
+ship than the codec takes to run: batch_transport() compares the card's
+measured read-back rate with WIRE_BATCH_LINK_MBPS, and a PCIe or NVLink
+host stays on pcm24. Input: each active lane's window is C++-encoded on
+the producer, idle lanes take one all-zeros stream, and the lanes'
+streams (whole u32 words) go into ONE pinned int32 buffer behind a header
+of 2*B words (n_valid, active): one upload per batch chunk. The device
+unpacks each lane at its offset (the host knows it from staging). A chunk
+in which some lane is not PCM_24-exact ships the lanes' raw floats
+instead, as the pcm24 batch does. Output: the batched step packs each
+lane's PCM_24 ints on the device, and the active lanes' used words are
+compacted into one flat stream at exclusive-cumsum offsets. S1 reads aux
+and used [B], S2 fetches flat[:total], and each lane's writer thread
+decodes its slice with the native codec before routing it. Every file's
+bytes are the pcm24 batch's. LAST_WIRE holds the link bytes of the last
+wire call.
 
 Not carried over: `_VCHUNK_CACHE`, `_VSTEP_CACHE`, `_FLAT_GRID` with
 `_flat_canonical`'s padding to a canonical shape, and the 1 MB page rows
@@ -51,6 +56,7 @@ count; eager torch compiles nothing).
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -62,8 +68,8 @@ from tomatis_tpu_torch.engine.streaming import (WIRE_RICE_IN,
                                                 ChunkedStftEngine,
                                                 ChunkReadback, SinkState,
                                                 StreamRunner,
+                                                probe_d2h_mbps,
                                                 resolve_rice_out,
-                                                resolve_transport,
                                                 stage_encode)
 from tomatis_tpu_torch.io import audio, wirecodec
 from tomatis_tpu_torch.ops import wire as wire_ops
@@ -84,6 +90,14 @@ LAST_TIMINGS: dict = {}
 # every lane that was active at dispatch); in_raw_chunks the
 # batch chunks that shipped raw floats (some lane not PCM_24-exact)
 LAST_WIRE: dict = {}
+
+# Link rate (MB/s) below which a one-device batch ships the wire codec's
+# streams: the bytes it saves at B = 8 over the wall time it adds. On an
+# H100 80GB HBM3 (700 W) chip_smoke.py's phase 28 reads 511 MB saved a
+# run (429 MB on wire against 940 MB on pcm24) for 0.44-0.68 s more wall,
+# a crossover of 750-1160 MB/s; the lower end is taken. A PCIe link runs
+# some fifty times faster.
+WIRE_BATCH_LINK_MBPS = 750.0
 
 
 class _Lane:
@@ -236,26 +250,19 @@ def _host_buffer(shape, dtype, dev: torch.device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, pin_memory=dev.type == "cuda")
 
 
-def _hdr_words(Bp: int) -> int:
-    """Header words in front of the flat input buffer: Bp lane offsets (in
-    words), Bp frame counts, Bp active flags."""
-    return 3 * Bp
-
-
 def _stage_flat(streams: list, nfs: np.ndarray, pin: torch.device):
     """The lanes' wire streams (uint8 arrays of whole u32 words, one per
-    lane) packed in lane order behind the header, in one host int32 buffer
-    (pinned for a card); the active flags are left 0 for the dispatch to
-    set. Returns (buffer, offsets in words, lengths in words)."""
+    lane) packed in lane order behind a header of 2*Bp words (the frame
+    counts, then the active flags, left 0 for the dispatch to set), in one
+    host int32 buffer (pinned for a card). Returns (buffer, offsets in
+    words, lengths in words)."""
     Bp = len(streams)
     words = np.array([len(v) // 4 for v in streams], np.int64)
-    offs = _hdr_words(Bp) + np.cumsum(words) - words
-    flat = _host_buffer((_hdr_words(Bp) + int(words.sum()),), torch.int32,
-                        pin)
+    offs = 2 * Bp + np.cumsum(words) - words
+    flat = _host_buffer((2 * Bp + int(words.sum()),), torch.int32, pin)
     f = flat.numpy()
-    f[:Bp] = offs
-    f[Bp:2 * Bp] = nfs
-    f[2 * Bp:3 * Bp] = 0
+    f[:Bp] = nfs
+    f[Bp:2 * Bp] = 0
     fb = f.view(np.uint8)
     for v, o in zip(streams, offs):
         fb[4 * o:4 * o + len(v)] = v
@@ -298,9 +305,24 @@ def _lane_layout(used: np.ndarray, active: np.ndarray, capW: int):
     return u, np.cumsum(u) - u
 
 
+def _link_mbps(dev: torch.device) -> float:
+    """The device's link rate in MB/s: the memoised pinned read-back probe
+    on a card; a CPU device has no link to spare (infinite)."""
+    return probe_d2h_mbps(device=dev) if dev.type == "cuda" else math.inf
+
+
+def batch_transport(blocks: list, sharded: bool) -> str:
+    """The batch's transport, from what the run observes: lane blocks
+    (devices=) take pcm24, as the reference's sharded lanes do; one device
+    takes wire when its link is slower than WIRE_BATCH_LINK_MBPS."""
+    if sharded or _link_mbps(blocks[0]) >= WIRE_BATCH_LINK_MBPS:
+        return "pcm24"
+    return "wire"
+
+
 def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
-                  state_csv_paths=None, devices=None, device="cuda",
-                  transport: str = "auto") -> list:
+                  state_csv_paths=None, devices=None,
+                  device="cuda") -> list:
     """Process a batch of files, one lane each, with one batched chunk
     step per chunk on `device`.
 
@@ -315,21 +337,10 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
     cpu); a list is used as given, repeats allowed. The lanes are padded
     to a multiple of the device count with idle lanes and lane block k
     runs on devices[k]; each lane's bytes are those of the single-device
-    run.
-
-    transport: "auto" (resolve_transport's rule: pcm24), "pcm24" or
-    "wire" (the same bytes; one device only, so devices= with it is an
-    error)."""
+    run. The link transport is batch_transport()'s choice (the same bytes
+    either way); LAST_TIMINGS["transport"] names it."""
     from tomatis_tpu_torch.models.standard import (StandardParams,
                                                    build_controller)
-    if transport not in ("auto", "pcm24", "wire"):
-        raise ValueError(f"process_batch takes transport auto, pcm24 or "
-                         f"wire, got {transport!r}")
-    transport = resolve_transport(transport, True)[0]
-    wire = transport == "wire"
-    if wire and devices is not None:
-        raise ValueError("transport 'wire' runs on one device; the lane "
-                         "blocks of devices= take pcm24")
     LAST_WIRE.clear()
     p = params or StandardParams()
     jobs = list(jobs)
@@ -339,6 +350,8 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         raise ValueError(f"state_csv_paths has {len(csvs)} entries for "
                          f"{B} jobs (zip would silently drop jobs)")
     blocks = _lane_devices(devices, device)
+    transport = batch_transport(blocks, devices is not None)
+    wire = transport == "wire"
     D = len(blocks)
     Bl = -(-B // D)      # lanes per block; Bl * D - B idle lanes pad
     Bp = Bl * D
@@ -598,13 +611,13 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         first."""
         if item[0] == "wire":
             _, flat, offs, words = item
-            flat.numpy()[2 * Bp:3 * Bp] = act
+            flat.numpy()[Bp:2 * Bp] = act
             wire_acct["in_used"] += 4 * int(words.sum())
             wire_acct["in_shipped"] += 4 * flat.numel()
             dv = blocks[0]
             flat_d = flat.to(dv, non_blocking=True)
             return [(_unpack_lanes(flat_d, offs, words, L, ch),
-                     flat_d[Bp:2 * Bp], flat_d[2 * Bp:3 * Bp] != 0)]
+                     flat_d[:Bp], flat_d[Bp:2 * Bp] != 0)]
         _, sig, nv = item
         if wire:
             wire_acct["in_raw_chunks"] += 1
