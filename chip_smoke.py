@@ -164,11 +164,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
     for byte, one batched launch per batch chunk and no single-file one;
     walls, aggregate realtime factor, LAST_TIMINGS, LAST_WIRE
     (shipped/used both ways), peak device memory, and the link rate below
-    which wire's saved bytes pay for its extra wall; the RPC worker down
-    (4 chunks). (b) the 10-minute FLAC of phase 15 beside the 60 s FLAC
-    on wire, with the RPC worker and with it held down (the local codec)
-    in turns (RPC, local, local, RPC), then pcm24: bytes equal, the
-    worker up and used in its runs and unused in the others. (c) a 20 s
+    which wire's saved bytes pay for its extra wall. (b) the 10-minute
+    FLAC of phase 15 beside the 60 s FLAC, in turns with pcm24 (wire,
+    pcm24, pcm24, wire): bytes equal, walls. (c) a 20 s
     FLOAT WAV that is not PCM_24-exact beside the 60 s FLAC: its chunks
     ship raw floats, the later ones the codec, bytes equal to pcm24's. No
     call reaches the numpy wire codec in this process;
@@ -2188,10 +2186,8 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
     (a) phase 18's eight FLAC lanes at B = 8, in turns with pcm24, twice
     each, and the link rate at which wire's saved bytes would pay for its
     extra wall; (b) the 10-minute FLAC of phase 15 beside the 60 s one,
-    long enough to start the RPC worker, in turns with the local codec
-    (the worker held down); (c) a FLOAT WAV lane that is not PCM_24-exact
+    in turns with pcm24; (c) a FLOAT WAV lane that is not PCM_24-exact
     beside a PCM_24 one (the raw-float fallback)."""
-    from tomatis_tpu_torch.engine import staging
     from tomatis_tpu_torch.io import wirecodec
     from tomatis_tpu_torch.ops import wire as wire_ops
     from tomatis_tpu_torch.parallel import batch
@@ -2215,23 +2211,8 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
             numpy_calls[0] += 1
             return fn(*a, **k)
         return call
-    # the RPC worker's calls, counted in this process
-    rpc_calls = {"encode": 0, "decode": 0}
-    enc_off = staging.host_encode_offload
-    dec_off = staging.decode_pcm24_offload
-    ensure = staging.ensure_rpc_worker
-
-    def host_encode_offload(*a):
-        rpc_calls["encode"] += 1
-        return enc_off(*a)
-
-    def decode_pcm24_offload(*a):
-        rpc_calls["decode"] += 1
-        return dec_off(*a)
 
     wire_ops.encode_np, wire_ops.decode_np = counted(np_enc), counted(np_dec)
-    staging.host_encode_offload = host_encode_offload
-    staging.decode_pcm24_offload = decode_pcm24_offload
     launches = {}
 
     def compare(name, jobs_w, csvs_w, jobs_p, csvs_p):
@@ -2248,9 +2229,7 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
                 f"({lw['out_used']} B used)")
 
     try:
-        # (a) eight lanes, B = 8: the local codec (a lane of 150 s is 4
-        # chunks, under the RPC worker's 8)
-        staging.shutdown_workers()
+        # (a) eight lanes, B = 8
         ins = [os.path.join(tmp, f"lane{i}.flac") for i in range(8)]
         outs, walls, shipped = {}, {"pcm24": [], "wire": []}, {}
         for k, tr in enumerate(("pcm24", "wire", "wire", "pcm24")):
@@ -2280,9 +2259,6 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
                 f"device memory {peak / 1e9:.3f} GB"
                 + (f", {ratios(lw)}" if lw else "") + f"; LAST_TIMINGS {lt}"
                 + (f"; LAST_WIRE {lw}" if lw else ""))
-        if staging.rpc_available() or any(rpc_calls.values()):
-            fail(f"wire batch (a): the RPC worker ran ({rpc_calls}); a "
-                 f"batch of 4 chunks keeps the local codec")
         saved = shipped["pcm24"] - shipped["wire"]
         extra = statistics.mean(walls["wire"]) - statistics.mean(
             walls["pcm24"])
@@ -2293,59 +2269,39 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
                f"(threshold {batch.WIRE_BATCH_LINK_MBPS:.0f})"
                if extra > 0 else "wire was not slower in this call"))
 
-        # (b) the 10-minute FLAC beside a 60 s lane: 14 chunks, so the
-        # batch starts the RPC worker for its encodes and decodes; in
-        # turns with the worker held down (the local codec), then pcm24
+        # (b) the 10-minute FLAC beside a 60 s lane: 14 batch chunks, the
+        # lanes' encodes and decodes in this process all the same
         ins = [os.path.join(tmp, "long.flac"), os.path.join(tmp, "in.flac")]
-        outs, walls = {}, {"rpc": [], "local": []}
-        for k, mode in enumerate(("rpc", "local", "local", "rpc",
-                                  "pcm24")):
-            tr = "pcm24" if mode == "pcm24" else "wire"
+        outs, walls = {}, {"pcm24": [], "wire": []}
+        for k, tr in enumerate(("wire", "pcm24", "pcm24", "wire")):
             d = os.path.join(tmp, f"wire_long_{k}")
             os.makedirs(d)
             jobs = [(ip, os.path.join(d, f"out{j}.flac"))
                     for j, ip in enumerate(ins)]
             csvs = [os.path.join(d, f"st{j}.csv") for j in range(2)]
-            staging.shutdown_workers()
-            staging.ensure_rpc_worker = (
-                (lambda: None) if mode == "local" else ensure)
-            before = dict(rpc_calls)
-            try:
-                stats, wall, lt, lw, c, peak = wire_batch_run(
-                    torch, cuda_ola, batch, p, jobs, csvs, tr,
-                    f"wire batch (b) run {k + 1} ({mode})")
-            finally:
-                staging.ensure_rpc_worker = ensure
-            calls = {n: rpc_calls[n] - before[n] for n in rpc_calls}
-            outs.setdefault(mode, (jobs, csvs))
-            if mode == "rpc":
+            stats, wall, lt, lw, c, peak = wire_batch_run(
+                torch, cuda_ola, batch, p, jobs, csvs, tr,
+                f"wire batch (b) run {k + 1} ({tr})")
+            outs.setdefault(tr, (jobs, csvs))
+            if tr == "wire":
                 launches.setdefault("batch_wire_long", c)
-                if not staging.rpc_available() or not all(calls.values()):
-                    fail(f"wire batch (b) run {k + 1}: the RPC worker was "
-                         f"not used ({calls}, up {staging.rpc_available()})")
-            elif any(calls.values()):
-                fail(f"wire batch (b) run {k + 1}: the RPC worker ran "
-                     f"({calls}) with the worker held down")
-            if mode in walls:
-                walls[mode].append(wall)
+            walls[tr].append(wall)
             audio_s = sum(s["n_frames"] * p.hop / SR for s in stats)
-            log(f"wire batch (b) run {k + 1}, {mode}: the 10-minute FLAC "
-                f"and a 60 s lane, {lt['chunks']} batch chunks, "
+            log(f"wire batch (b) run {k + 1}, {tr}: the 10-minute FLAC and "
+                f"a 60 s lane, {lt['chunks']} batch chunks, "
                 f"{c['chunk_tail_batched']} batched launches; wall "
                 f"{wall:.3f} s, aggregate realtime factor "
                 f"{audio_s / wall:.2f}x, peak device memory "
                 f"{peak / 1e9:.3f} GB"
-                + (f", RPC worker calls {calls}, {ratios(lw)}" if lw else "")
-                + f"; LAST_TIMINGS {lt}")
-        for mode in ("rpc", "local"):
-            compare(f"wire batch (b) {mode}", *outs[mode], *outs["pcm24"])
-        d_local = (statistics.mean(walls["local"])
-                   - statistics.mean(walls["rpc"]))
+                + (f", {ratios(lw)}" if lw else "") + f"; LAST_TIMINGS {lt}")
+        compare("wire batch (b)", *outs["wire"], *outs["pcm24"])
+        d_wire = (statistics.mean(walls["wire"])
+                  - statistics.mean(walls["pcm24"]))
         log(f"wire batch (b): both lanes' FLACs and state CSVs equal the "
-            f"pcm24 run's byte for byte on the RPC worker and on the local "
-            f"codec; walls RPC {[round(w, 3) for w in walls['rpc']]} s, "
-            f"local {[round(w, 3) for w in walls['local']]} s, "
-            f"local {d_local:+.3f} s against RPC by the means")
+            f"pcm24 run's byte for byte; walls wire "
+            f"{[round(w, 3) for w in walls['wire']]} s, pcm24 "
+            f"{[round(w, 3) for w in walls['pcm24']]} s, wire "
+            f"{d_wire:+.3f} s against pcm24 by the means")
 
         # (c) a FLOAT WAV that is not PCM_24-exact (20 s) beside the 60 s
         # PCM_24 FLAC: its chunks ship raw floats, the last one the codec
@@ -2353,7 +2309,6 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
         audio.write(fw, x[:20 * SR] + np.float32(1e-9), SR, subtype="FLOAT")
         ins = [fw, os.path.join(tmp, "in.flac")]
         outs = {}
-        staging.shutdown_workers()
         for tr in ("wire", "pcm24"):
             d = os.path.join(tmp, f"wire_float_{tr}")
             os.makedirs(d)
@@ -2377,9 +2332,6 @@ def wire_batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
         log("wire batch (c): both lanes equal the pcm24 run's bytes")
     finally:
         wire_ops.encode_np, wire_ops.decode_np = np_enc, np_dec
-        staging.host_encode_offload = enc_off
-        staging.decode_pcm24_offload = dec_off
-        staging.shutdown_workers()
     if numpy_calls[0]:
         fail(f"wire batch: the numpy wire codec ran {numpy_calls[0]} times "
              f"(the native one must encode and decode)")

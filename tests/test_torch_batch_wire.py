@@ -199,51 +199,19 @@ def test_wire_link_bytes_accounting(tmp_path):
     assert w["out_shipped"] == w["out_used"], w
 
 
-@pytest.fixture()
-def rpc_counts(monkeypatch):
-    """Counts of the wire batch's calls into the RPC worker; every worker
-    stopped before and after."""
+def test_wire_long_batch_keeps_the_local_codec(tmp_path):
+    """Lanes of more than 8 chunks (where the reference starts its RPC
+    worker) encode and decode in this process: the worker stays down and
+    every file and state CSV equal the pcm24 batch's."""
     staging.shutdown_workers()
-    counts = {"encode": 0, "decode": 0}
-    enc, dec = staging.host_encode_offload, staging.decode_pcm24_offload
-
-    def host_encode_offload(*a):
-        counts["encode"] += 1
-        return enc(*a)
-
-    def decode_pcm24_offload(*a):
-        counts["decode"] += 1
-        return dec(*a)
-
-    monkeypatch.setattr(staging, "host_encode_offload", host_encode_offload)
-    monkeypatch.setattr(staging, "decode_pcm24_offload",
-                        decode_pcm24_offload)
-    yield counts
-    staging.shutdown_workers()
-
-
-def test_wire_rpc_codec_matches_local(tmp_path, monkeypatch, rpc_counts):
-    """The counterpart of tests/test_staging.py::
-    test_batch_rpc_encode_matches_local: lanes of more than 8 chunks start
-    the RPC worker, whose encodes and decodes give the local codec's
-    bytes; a short batch leaves the worker down."""
     ins = _files(tmp_path, [6.0, 3.5], ext="wav")     # 6 s: 143 frames
-    (tmp_path / "s").mkdir()
-    short = _files(tmp_path / "s", [2.0, 1.0], ext="wav")
-    _run(tmp_path, short, "short", "wire", csv_out=False)
+    _, outs_w, csvs_w = _run(tmp_path, ins, "wire", "wire")
+    assert batch.LAST_TIMINGS["chunks"] > 8
     assert not staging.rpc_available()
-    assert rpc_counts == {"encode": 0, "decode": 0}
-    with monkeypatch.context() as m:
-        m.setattr(staging, "ensure_rpc_worker", lambda: None)
-        _, outs_l, csvs_l = _run(tmp_path, ins, "local", "wire")
-    assert not staging.rpc_available()
-    assert rpc_counts == {"encode": 0, "decode": 0}
-    _, outs_r, csvs_r = _run(tmp_path, ins, "rpc", "wire")
-    assert staging.rpc_available()
-    assert rpc_counts["encode"] > 0 and rpc_counts["decode"] > 0
+    _, outs_p, csvs_p = _run(tmp_path, ins, "pcm24", "pcm24")
     for i in range(2):
-        assert _same_bytes(outs_r[i], outs_l[i])
-        assert _same_bytes(csvs_r[i], csvs_l[i])
+        assert _same_bytes(outs_w[i], outs_p[i])
+        assert _same_bytes(csvs_w[i], csvs_p[i])
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -46,7 +46,10 @@ compacted into one flat stream at exclusive-cumsum offsets. S1 reads aux
 and used [B], S2 fetches flat[:total], and each lane's writer thread
 decodes its slice with the native codec before routing it. Every file's
 bytes are the pcm24 batch's. LAST_WIRE holds the link bytes of the last
-wire call.
+wire call. The codec stays in this process on long batches too: the
+reference's RPC worker past 8 chunks (engine/staging.py) made a
+10-minute lane 2.2 s slower on an H100 host, each call's window pickled
+through a pipe.
 
 Not carried over: `_VCHUNK_CACHE`, `_VSTEP_CACHE`, `_FLAT_GRID` with
 `_flat_canonical`'s padding to a canonical shape, and the 1 MB page rows
@@ -63,7 +66,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from tomatis_tpu_torch.engine import staging
 from tomatis_tpu_torch.engine.streaming import (WIRE_RICE_IN,
                                                 ChunkedStftEngine,
                                                 ChunkReadback, SinkState,
@@ -94,10 +96,10 @@ LAST_WIRE: dict = {}
 # Link rate (MB/s) below which a one-device batch ships the wire codec's
 # streams: the bytes it saves at B = 8 over the wall time it adds. On an
 # H100 80GB HBM3 (700 W) chip_smoke.py's phase 28 reads 511 MB saved a
-# run (429 MB on wire against 940 MB on pcm24) for 0.44-0.68 s more wall,
-# a crossover of 750-1160 MB/s; the lower end is taken. A PCIe link runs
-# some fifty times faster.
-WIRE_BATCH_LINK_MBPS = 750.0
+# run (429 MB on wire against 940 MB on pcm24) for 0.44-1.09 s more wall
+# over three calls, crossovers of 469-1159 MB/s; the lowest, rounded
+# down, is taken. That card's PCIe link read back 38 GB/s.
+WIRE_BATCH_LINK_MBPS = 450.0
 
 
 class _Lane:
@@ -418,12 +420,6 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
 
     hop, F, L = engine.hop, engine.frames_per_chunk, engine.chunk_input_len
     capW = wire_ops.max_words(engine.emit_full, ch)
-    if wire and any(lane.failed is None and lane.n_frames > 8 * F
-                    for lane in lanes):
-        # long batches: the lanes' encodes and decodes go to the RPC
-        # worker process (its spawn overlaps the first reads); short ones
-        # keep the local codec
-        staging.ensure_rpc_worker()
 
     def read_window(lane, start, nf, sig_row):
         """One lane's window of the next chunk into its slot (a pool
@@ -433,13 +429,10 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
 
     def read_encode(lane, start, nf):
         """wire: one lane's window of the next chunk and its C++ encode
-        (a pool thread; the codec releases the interpreter lock, the RPC
-        worker takes one request at a time) -> (window, tagged item)."""
+        (a pool thread; the codec releases the interpreter lock) ->
+        (window, tagged item)."""
         win = lane.rolling.window(start, L)
         lane.rolling.advance(start + nf * hop)
-        if staging.rpc_available():
-            return win, staging.host_encode_offload(win, False,
-                                                    WIRE_RICE_IN)
         return win, stage_encode(win, False)
 
     # an idle lane's wire stream: all zeros, the same for every chunk
@@ -564,20 +557,18 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
 
     def wire_payloads(host, act):
         """wire: lane i -> a callable decoding its slice of the fetched
-        stream (the offsets replicate the device compaction; the RPC
-        worker decodes when it is up)."""
+        stream (the offsets replicate the device compaction)."""
         aux_np, used_np, flat_np = host
         used_w, offs_w = _lane_layout(used_np, act, capW)
         fb = flat_np.view(np.uint8)
-        dec = (staging.decode_pcm24_offload if staging.rpc_available()
-               else wirecodec.decode_pcm24)
         wire_acct["out_shipped"] += flat_np.nbytes
         out = {}
         for i, lane in enumerate(lanes):
             if lane.failed is None and act[i]:
                 wire_acct["out_used"] += 4 * int(used_w[i])
                 src = fb[4 * offs_w[i]:4 * (offs_w[i] + used_w[i])]
-                out[i] = (lambda src=src: dec(src, engine.emit_full, ch),
+                out[i] = (lambda src=src: wirecodec.decode_pcm24(
+                    src, engine.emit_full, ch),
                           aux_np[i])
         return out
 
