@@ -33,8 +33,8 @@ codec, which the reference runs on every single-device batch (its
 `wire = mesh_devs is None`). The port takes it where the reference's reason
 holds, a link slow enough that the bytes the codec saves take longer to
 ship than the codec takes to run: batch_transport() compares the card's
-measured read-back rate with WIRE_BATCH_LINK_MBPS, and a PCIe or NVLink
-host stays on pcm24. Input: each active lane's window is C++-encoded on
+measured read-back rate with WIRE_BATCH_LINK_MBPS, and a PCIe host
+stays on pcm24. Input: each active lane's window is C++-encoded on
 the producer, idle lanes take one all-zeros stream, and the lanes'
 streams (whole u32 words) go into ONE pinned int32 buffer behind a header
 of 2*B words (n_valid, active): one upload per batch chunk. The device
