@@ -170,10 +170,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
     FLOAT WAV that is not PCM_24-exact beside the 60 s FLAC: its chunks
     ship raw floats, the later ones the codec, bytes equal to pcm24's. No
     call reaches the numpy wire codec in this process;
-29. prints the card line, the kernels JSON line and, last, the result
+29. the package's public surface: the M-minute programme as a WAV
+    through tomatis_tpu_torch.process (the top-level name) and through
+    the function pyproject.toml installs as `tomatis-torch` running
+    `process`, each byte-equal (WAV and state CSV) to
+    models.standard.process on the same file in this call with one
+    chunk-tail launch per chunk and no overlap-add; then `validate` on
+    the 60 s output of phase 5 in child processes: TOMATIS_PLATFORM=cpu
+    with no --device gives --device cpu's console text and CSV and leaves
+    CUDA uninitialised, and --device cuda under the same variable
+    initialises the card;
+30. prints the card line, the kernels JSON line and, last, the result
     line {"ok": true, "device": {...}}. Each path is driven with the
     launch counts set to 0 just before it and read just after:
-    `launches_by_path` holds those readings, `launches` their sum.
+    `launches_by_path` holds those readings, `launches` their sum;
+    `launches_by_frames` the chunk tail's by chunk size (the ramp's 256
+    and 512 frames, then 1024) on each single-file path.
 The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -493,12 +505,13 @@ def check_chunk_tail(torch, cuda_ola):
             plain_ms, unfused_ms, ms = time_turns(torch, fns)
             nbytes = tail_bytes(F, C, n_fft, hop, transport)
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            cms = copy_ms(torch, nbytes)
             timed[(F, transport)] = dict(ms=ms, plain_ms=plain_ms,
-                                         bound_ms=bound_ms)
+                                         bound_ms=bound_ms, copy_ms=cms)
             log(f"chunk tail {(F, C, n_fft, hop)} {transport}: kernel "
                 f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB"
                 f" at 3.35 TB/s, {100 * bound_ms / ms:.0f}% of it; a copy "
-                f"moving as many bytes {copy_ms(torch, nbytes):.4f} ms); "
+                f"moving as many bytes {cms:.4f} ms); "
                 f"chunk_tail_plain, PR 1's composed chunk tail (the main "
                 f"path's before-figure) {plain_ms:.4f} ms; the same "
                 f"composition with the standalone OLA kernel {unfused_ms:.4f}"
@@ -517,7 +530,9 @@ def check_chunk_tail(torch, cuda_ola):
             f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, {100 * bound_ms / ms:.0f}%"
             f" of it); chunk_tail_plain {plain_ms:.4f} ms")
     return dict(max_abs_err=worst, library_ms=None,
-                **timed[(1024, "pcm24")])
+                **timed[(1024, "pcm24")],
+                other_shapes={f"[{F}, 2, 4096] hop 2048 pcm24":
+                              timed[(F, "pcm24")] for F in (512, 256)})
 
 
 def chunk_schedule(standard, p, n: int) -> list:
@@ -576,6 +591,7 @@ def reset_counts(cuda_ola):
     cuda_ola.overlap_add_cuda.launches = 0
     cuda_ola.chunk_tail_cuda.launches = 0
     cuda_ola.chunk_tail_cuda.by_variant.clear()
+    cuda_ola.chunk_tail_cuda.by_frames.clear()
     cuda_ola.chunk_tail_batched_cuda.launches = 0
     cuda_ola.chunk_tail_batched_cuda.by_variant.clear()
 
@@ -584,6 +600,13 @@ def counts_of(cuda_ola) -> dict:
     return {"chunk_tail": cuda_ola.chunk_tail_cuda.launches,
             "overlap_add": cuda_ola.overlap_add_cuda.launches,
             "chunk_tail_batched": cuda_ola.chunk_tail_batched_cuda.launches}
+
+
+def tail_frames(cuda_ola, c: dict) -> dict:
+    """c with the chunk-tail launches by chunk size (frames) beside it:
+    the ramp's 256- and 512-frame chunks and the full ones."""
+    by = cuda_ola.chunk_tail_cuda.by_frames
+    return dict(c, chunk_tail_by_frames={str(f): by[f] for f in sorted(by)})
 
 
 def read_counts(cuda_ola, chunks: int, what: str, variant=None) -> dict:
@@ -599,7 +622,7 @@ def read_counts(cuda_ola, chunks: int, what: str, variant=None) -> dict:
     by = dict(cuda_ola.chunk_tail_cuda.by_variant)
     if variant is not None and by != {variant: chunks}:
         fail(f"{what}: chunk-tail variants {by}, expected only {variant}")
-    return c
+    return tail_frames(cuda_ola, c)
 
 
 def read_batch_counts(cuda_ola, chunks: int, what: str) -> dict:
@@ -1653,7 +1676,7 @@ def only_chunk_tails(cuda_ola, what: str) -> dict:
     c = counts_of(cuda_ola)
     if c["chunk_tail"] == 0 or c["overlap_add"] or c["chunk_tail_batched"]:
         fail(f"{what}: launches {c} (expected chunk-tail launches only)")
-    return c
+    return tail_frames(cuda_ola, c)
 
 
 def doctor_path(cuda_ola) -> dict:
@@ -2562,6 +2585,152 @@ def comparison_paths(audio, standard, ip, op, tmp):
         f"written: {pngs or 'none'}")
 
 
+VALIDATE_CHILD = """import sys, torch
+from tomatis_tpu_torch.cli.main import main
+rc = main(sys.argv[1:])
+print("cuda initialized:", torch.cuda.is_initialized())
+sys.exit(rc)
+"""
+
+
+def console_entry():
+    """The function that pyproject.toml installs as `tomatis-torch`."""
+    import importlib
+    import tomllib
+    with open(os.path.join(HERE, "pyproject.toml"), "rb") as f:
+        target = tomllib.load(f)["project"]["scripts"]["tomatis-torch"]
+    mod, fn = target.split(":")
+    return target, getattr(importlib.import_module(mod), fn)
+
+
+def platform_runs(ip, op, cp, d: str, card: str):
+    """Phase 29 (d): `validate` on the 60 s output of phase 5 in three
+    child processes, side by side: TOMATIS_PLATFORM=cpu with no --device,
+    --device cpu with no variable, and TOMATIS_PLATFORM=cpu with --device
+    cuda. The first must print the second's console text (its verdict
+    with it), write the same spectrum CSV and leave CUDA uninitialised;
+    the third must initialise the card and give a verdict."""
+    base = dict(os.environ, PYTHONPATH=HERE, PYTHONIOENCODING="utf-8")
+    base.pop("TOMATIS_PLATFORM", None)
+    env_cpu = dict(base, TOMATIS_PLATFORM="cpu")
+    argv = ["validate", "-i", ip, "-o", op, "--state_csv", cp]
+    runs = {"env_cpu": (env_cpu, []),
+            "flag_cpu": (base, ["--device", "cpu"]),
+            "env_cpu_flag_cuda": (env_cpu, ["--device", "cuda"])}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, (env, extra) in runs.items():
+        cwd = os.path.join(d, name)   # validate writes its CSV here
+        os.makedirs(cwd)
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", VALIDATE_CHILD] + argv + extra, env=env,
+            cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            encoding="utf-8")
+    res = {}
+    try:
+        for name, pr in procs.items():
+            out, err = pr.communicate(timeout=600)
+            res[name] = (pr.returncode, out, err)
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    wall = time.perf_counter() - t0
+    inited = {}
+    for name, (rc, out, err) in res.items():
+        lines = out.strip().splitlines()
+        if not lines or not lines[-1].startswith("cuda initialized:") \
+                or rc not in (0, 1) or "Layer1 验证: " not in out:
+            fail(f"validate ({name}) exited {rc} without a verdict: "
+                 f"{out[-1500:]} {err[-1500:]}")
+        inited[name] = lines[-1].split(":", 1)[1].strip()
+    (rc_e, out_e, _), (rc_f, out_f, _) = res["env_cpu"], res["flag_cpu"]
+    csvs = [os.path.join(d, n, "layer1_spectrum_check.csv")
+            for n in ("env_cpu", "flag_cpu")]
+    if rc_e != rc_f or out_e != out_f or not files_equal(*csvs):
+        fail(f"validate under TOMATIS_PLATFORM=cpu (exit {rc_e}) differs "
+             f"from --device cpu (exit {rc_f}) in its console text or CSV")
+    if inited != {"env_cpu": "False", "flag_cpu": "False",
+                  "env_cpu_flag_cuda": "True"}:
+        fail(f"CUDA initialised in the validate children: {inited} (cpu "
+             f"runs must leave it uninitialised, --device cuda set it up)")
+    verdict = [ln for ln in out_e.splitlines() if "Layer1 验证" in ln][-1]
+    rc_c = res["env_cpu_flag_cuda"][0]
+    log(f"api: validate on the 60 s output in three child processes side by "
+        f"side, {wall:.3f} s in all ({card}): TOMATIS_PLATFORM=cpu without "
+        f"--device exit {rc_e} ({verdict!r}: no sidecar, so the reference "
+        f"validator's defaults), the console text and spectrum "
+        f"CSV of --device cpu's run (exit {rc_f}), CUDA initialised "
+        f"{inited['env_cpu']} / {inited['flag_cpu']}; with --device cuda "
+        f"it wins over the variable: CUDA initialised "
+        f"{inited['env_cpu_flag_cuda']}, exit {rc_c}")
+
+
+def api_paths(torch, cuda_ola, audio, standard, x, ip, op, cp, tmp,
+              card: str) -> dict:
+    """Phase 29: the package's public surface on the card. The M-minute
+    programme as a WAV through (a) tomatis_tpu_torch.process and (b) the
+    function pyproject.toml installs as `tomatis-torch`, running
+    `process`, each byte-equal (WAV and state CSV) to
+    models.standard.process on the same file with default StandardParams
+    and 1024 frames per chunk, one chunk-tail launch per chunk each;
+    then (d) TOMATIS_PLATFORM in child processes (platform_runs)."""
+    import tomatis_tpu_torch as tt
+    if tt.process is not standard.process \
+            or tt.StandardParams is not standard.StandardParams:
+        fail("tomatis_tpu_torch.process is not models.standard.process")
+    target, entry = console_entry()
+    d = os.path.join(tmp, "api")
+    os.makedirs(d)
+    lip = os.path.join(d, "long.wav")
+    audio.write(lip, x, SR, subtype="PCM_24")
+    paths = {k: (os.path.join(d, f"{k}.wav"), os.path.join(d, f"{k}.csv"))
+             for k in ("reference", "top_level", "console")}
+
+    def reference(o, c):
+        return standard.process(lip, o, standard.StandardParams(),
+                                state_csv_path=c, frames_per_chunk=1024,
+                                device="cuda")
+
+    def top_level(o, c):
+        return tt.process(lip, o, state_csv_path=c)
+
+    def console(o, c):
+        rc, text = quiet_call(entry, ["process", "-i", lip, "-o", o,
+                                      "--state_csv", c])
+        for ln in text.strip().splitlines():
+            log(f"api: tomatis-torch: {ln}")
+        if rc != 0:
+            fail(f"tomatis-torch process exited {rc}")
+
+    launches, chunks = {}, None
+    for name, fn in (("reference", reference), ("top_level", top_level),
+                     ("console", console)):
+        o, c = paths[name]
+        torch.cuda.synchronize()
+        reset_counts(cuda_ola)
+        t0 = time.perf_counter()
+        st = fn(o, c)
+        wall = time.perf_counter() - t0
+        chunks = st["chunks"] if st is not None else chunks
+        launches[f"api_{name}"] = read_counts(cuda_ola, chunks, f"api {name}")
+        if name != "reference" and not (
+                files_equal(o, paths["reference"][0])
+                and files_equal(c, paths["reference"][1])):
+            fail(f"api {name}: the WAV or the state CSV differs from "
+                 f"models.standard.process's bytes")
+        log(f"api {name}: {len(x) / SR:.0f} s WAV to WAV, {chunks} chunks, "
+            f"{launches[f'api_{name}']['chunk_tail']} chunk-tail launches "
+            f"{launches[f'api_{name}']['chunk_tail_by_frames']}, no "
+            f"overlap-add; wall {wall:.3f} s ({card})"
+            + ("" if name == "reference" else
+               "; WAV and state CSV equal the reference's bytes"))
+    log(f"api: tomatis-torch resolves to {target} (pyproject.toml)")
+    platform_runs(ip, op, cp, d, card)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2892,9 +3061,13 @@ def main() -> int:
     # -- 28. process-batch on wire -------------------------------------------
     launches.update(wire_batch_path(torch, cuda_ola, audio, standard, x,
                                     tmp))
+    # -- 29. the package's public surface: top level, tomatis-torch, -------
+    # TOMATIS_PLATFORM
+    launches.update(api_paths(torch, cuda_ola, audio, standard, x, ip, op,
+                              cp, tmp, card))
     tmp_dir.cleanup()
 
-    # -- 29. result ----------------------------------------------------------
+    # -- 30. result ----------------------------------------------------------
     replaces = {"chunk_tail_batched": "tomatis_tpu/ops/pallas_ola.py:75 "
                 "under jax.vmap (tomatis_tpu/parallel/batch.py:272)"}
     kernels = [dict(name=name, route="cuda",
@@ -2907,6 +3080,10 @@ def main() -> int:
                     bound_by="bytes", **res)
                for name, res in (("overlap_add", ola), ("chunk_tail", tail),
                                  ("chunk_tail_batched", batched))]
+    next(k for k in kernels if k["name"] == "chunk_tail")[
+        "launches_by_frames"] = {
+        k: c["chunk_tail_by_frames"] for k, c in launches.items()
+        if "chunk_tail_by_frames" in c}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@ here each group exists once.
 from __future__ import annotations
 
 import argparse
+import os
+import re
+
+PLATFORM_ENV = "TOMATIS_PLATFORM"
 
 
 def add_io_flags(ap: argparse.ArgumentParser):
@@ -55,3 +59,24 @@ def add_engine_flags(ap: argparse.ArgumentParser):
                     help="frames per device chunk step")
     ap.add_argument("--allow_any_rate", action="store_true",
                     help="skip the reference's 48kHz/stereo requirement")
+
+
+def default_device() -> str:
+    """The commands' --device default: cuda, or the device that
+    TOMATIS_PLATFORM names (cpu; cuda, gpu or cuda:N for the card), the
+    counterpart of the reference CLI's platform pin. An explicit --device
+    wins. Any other value is refused, never read as the CPU."""
+    plat = os.environ.get(PLATFORM_ENV, "")
+    if plat in ("", "gpu"):
+        return "cuda"
+    if plat in ("cpu", "cuda") or re.fullmatch(r"cuda:\d+", plat):
+        return plat
+    raise ValueError(f"{PLATFORM_ENV}={plat!r} names no device of this "
+                     f"package (cpu, cuda, gpu or cuda:N)")
+
+
+def add_device_flag(ap: argparse.ArgumentParser, flag: str = "--device",
+                    help: str = "torch device to run on (cuda, cuda:N or "
+                                "cpu)"):
+    ap.add_argument(flag, default=default_device(),
+                    help=f"{help}; default cuda, or ${PLATFORM_ENV}")

@@ -9,6 +9,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -29,8 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--smooth_bins", type=int, default=71)
     ap.add_argument("--out_csv", default="layer2_eq_curve.csv")
     ap.add_argument("--out_png", default="layer2_eq_curve.png")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     return ap
 
 

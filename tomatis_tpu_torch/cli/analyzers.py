@@ -10,6 +10,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def _wrap(fn):
     def runner(argv=None) -> int:
@@ -115,8 +117,7 @@ def stereo_main(argv=None) -> int:
     ap.add_argument("--min_hold_ms", type=float, default=250.0)
     ap.add_argument("--n_fft", type=int, default=4096)
     ap.add_argument("--hop", type=int, default=2048)
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     args = ap.parse_args(argv)
     from tomatis_tpu_torch.analysis.levels import analyze_stereo_state
     res = analyze_stereo_state(args.input, args.output, args.target_c2,

@@ -10,6 +10,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -36,8 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--frames_per_chunk", type=int, default=1024)
     ap.add_argument("--checkpoint", default=None,
                     help="checkpoint file for crash recovery / resume")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     return ap
 
 

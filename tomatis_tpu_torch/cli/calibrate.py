@@ -7,6 +7,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def build_v1_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -28,8 +30,7 @@ def build_v1_parser() -> argparse.ArgumentParser:
                     default=[0, 50, 100, 150, 200, 250, 300])
     ap.add_argument("--max_minutes", type=float, default=8.0)
     ap.add_argument("--out_json", default="calibration.json")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     return ap
 
 
@@ -89,8 +90,7 @@ def build_v2_parser() -> argparse.ArgumentParser:
     ap.add_argument("--T_pm_db", type=float, default=10.0)
     ap.add_argument("--T_step_db", type=float, default=0.25)
     ap.add_argument("--out_json", default="calibration_v2.json")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     return ap
 
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def _wrap(fn):
     def runner(argv=None) -> int:
@@ -38,8 +40,7 @@ def baseline_main(argv=None) -> int:
     ap.add_argument("--n_fft", type=int, default=4096)
     ap.add_argument("--hop", type=int, default=2048)
     ap.add_argument("--max_minutes", type=float, default=8.0)
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     args = ap.parse_args(argv)
     from tomatis_tpu_torch.analysis.compare_suite import compare_to_baseline
     results = compare_to_baseline(args.baseline, args.candidates,
@@ -69,8 +70,7 @@ def three_main(argv=None) -> int:
     ap.add_argument("--hop", type=int, default=4096)
     ap.add_argument("--smooth_win", type=int, default=31)
     ap.add_argument("--out_prefix", default="cmp")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     args = ap.parse_args(argv)
     from tomatis_tpu_torch.analysis.compare_suite import compare_three
     results = compare_three(args.base, args.cand, sr=args.sr,
@@ -108,8 +108,7 @@ def diff_spectrum_main(argv=None) -> int:
     ap.add_argument("--clamp_hi", type=float, default=12.0)
     ap.add_argument("--smooth_win", type=int, default=31)
     ap.add_argument("--log_grid_n", type=int, default=512)
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     args = ap.parse_args(argv)
     from tomatis_tpu_torch.analysis.compare_suite import compare_diff_spectrum
     res = compare_diff_spectrum(

@@ -6,9 +6,10 @@ round trips, an STFT check and an engine run.
 
     python -m tomatis_tpu_torch.cli.main doctor [--device cpu]
 
-The checks run on --device (default cuda). Without a card, the device
-check fails and the command exits 1 unless --device cpu or --skip_device
-(which runs the compute checks on the CPU and says so) is given.
+The checks run on --device (default cuda, or TOMATIS_PLATFORM). Without a
+card, the device check fails and the command exits 1 unless --device cpu,
+TOMATIS_PLATFORM=cpu or --skip_device (which runs the compute checks on
+the CPU and says so) is given.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import subprocess
 import sys
 import tempfile
 import threading
+
+from tomatis_tpu_torch.cli._flags import add_device_flag
 
 
 def _probe_card(timeout: float) -> str:
@@ -32,8 +35,9 @@ def _probe_card(timeout: float) -> str:
             import torch
             if not torch.cuda.is_available():
                 raise RuntimeError(
-                    "no CUDA device is available (pass --device cpu to "
-                    "check the CPU path, or --skip_device)")
+                    "no CUDA device is available (rerun with --skip_device, "
+                    "--device cpu or TOMATIS_PLATFORM=cpu to check the CPU "
+                    "path)")
             res["ok"] = (f"{torch.cuda.device_count()} x "
                          f"{torch.cuda.get_device_name(0)}, torch "
                          f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -45,7 +49,8 @@ def _probe_card(timeout: float) -> str:
     t.join(timeout=timeout)
     if t.is_alive():
         raise TimeoutError(f"no CUDA device after {timeout:.0f}s: the "
-                           "CUDA runtime may be hung (rerun with --skip_device)")
+                           "CUDA runtime may be hung (rerun with --skip_device "
+                           "or TOMATIS_PLATFORM=cpu)")
     if "err" in res:
         raise res["err"]
     try:
@@ -90,9 +95,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="tomatis_tpu_torch doctor",
         description="Verify the runtime environment end to end")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to check and run on (cuda, cuda:N "
-                         "or cpu)")
+    add_device_flag(ap, help="torch device to check and run on (cuda, "
+                             "cuda:N or cpu)")
     ap.add_argument("--skip_device", action="store_true",
                     help="skip the CUDA device, kernel build and kernel "
                          "checks; the compute checks run on the CPU")

@@ -1,11 +1,16 @@
-"""CLI dispatcher of the PyTorch port:
-`python -m tomatis_tpu_torch.cli.main <command> ...`.
+"""CLI dispatcher of the PyTorch port: `tomatis-torch <command> ...`
+(installed by pyproject.toml) or `python -m tomatis_tpu_torch.cli.main
+<command> ...` from the tree.
 
 All 35 commands of tomatis_tpu/cli/main.py: the three processors, the
 sharded and the batch processor, the EQ appliers, the repair tools, the
 device-matching workflow with its analysis commands, the comparison
 suite, reverse-engineer, the verifiers, the level and segment analyzers
 and doctor.
+
+Every command's --device defaults to cuda, or to the device that
+TOMATIS_PLATFORM names (cpu, cuda, gpu, cuda:N); any other value of the
+variable fails the command (cli/_flags.py::default_device).
 
 An entry is (module, help) and the module's main() runs, or (module,
 help, function) and that function runs, as in the reference's table.
@@ -14,6 +19,8 @@ from __future__ import annotations
 
 import importlib
 import sys
+
+from tomatis_tpu_torch.cli._flags import default_device
 
 COMMANDS = {
     "process": ("tomatis_tpu_torch.cli.process",
@@ -104,14 +111,18 @@ COMMANDS = {
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: python -m tomatis_tpu_torch.cli.main <command> "
-              "[options]\n\ncommands:")
+        print("usage: tomatis-torch <command> [options]\n\ncommands:")
         for name, spec in sorted(COMMANDS.items()):
             print(f"  {name:24s} {spec[1]}")
         return 0
     cmd = argv[0]
     if cmd not in COMMANDS:
         print(f"unknown command: {cmd!r} (see --help)")
+        return 2
+    try:
+        default_device()   # a TOMATIS_PLATFORM that names no device
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
         return 2
     spec = COMMANDS[cmd]
     mod = importlib.import_module(spec[0])

@@ -13,6 +13,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -37,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="use the full-range residual clamps instead of "
                          "Safe-B")
     ap.add_argument("--allow_any_rate", action="store_true")
-    ap.add_argument("--torch_device", default="cuda",
+    add_device_flag(ap, "--torch_device",
                     help="torch device to run on (cuda, cuda:N or cpu); "
                          "--device is the device recording")
     return ap

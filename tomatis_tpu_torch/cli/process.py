@@ -11,7 +11,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from tomatis_tpu_torch.cli._flags import (add_engine_flags, add_filter_flags,
+from tomatis_tpu_torch.cli._flags import (add_device_flag,
+                                          add_engine_flags, add_filter_flags,
                                           add_gate_flags, add_io_flags,
                                           add_stft_flags)
 
@@ -48,8 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "compression both ways (thin links), pcm24 = "
                          "device-packed PCM_24 bytes without the codec "
                          "(PCIe hosts), f32 = raw floats; auto picks pcm24")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     add_engine_flags(ap)
     return ap
 

@@ -9,7 +9,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from tomatis_tpu_torch.cli._flags import (add_filter_flags, add_io_flags,
+from tomatis_tpu_torch.cli._flags import (add_device_flag,
+                                          add_filter_flags, add_io_flags,
                                           add_stft_flags)
 
 
@@ -41,8 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="chunks between checkpoints")
     ap.add_argument("--progress", action="store_true",
                     help="print per-chunk progress")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     return ap
 
 

@@ -15,7 +15,8 @@ import os
 import sys
 import time
 
-from tomatis_tpu_torch.cli._flags import (add_filter_flags, add_gate_flags,
+from tomatis_tpu_torch.cli._flags import (add_device_flag,
+                                          add_filter_flags, add_gate_flags,
                                           add_stft_flags)
 
 
@@ -39,8 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--devices", type=int, default=0,
                     help="shard the lane axis over the first N devices "
                          "(0 = single device)")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     return ap
 
 

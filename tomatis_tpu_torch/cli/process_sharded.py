@@ -10,7 +10,7 @@ plan, per-flush clamp, state CSV).
         -o out.flac --devices 4 --frames_per_shard 256
 
 Takes the reference flags (tomatis_tpu/cli/process_sharded.py) and
---device: "cuda" (the default) puts one shard on each of the first
+--device: "cuda" (the default, or TOMATIS_PLATFORM) puts one shard on each of the first
 --devices cards (all of them without --devices, as the reference); a named
 device (cuda:0, cpu) puts --devices shards on that one device, so
 `--device cuda:0 --devices 4` runs four shards on one card.
@@ -20,7 +20,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from tomatis_tpu_torch.cli._flags import (add_filter_flags, add_gate_flags,
+from tomatis_tpu_torch.cli._flags import (add_device_flag,
+                                          add_filter_flags, add_gate_flags,
                                           add_io_flags, add_stft_flags)
 
 
@@ -71,9 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "level/threshold passes recompute)")
     ap.add_argument("--checkpoint_every", type=int, default=8,
                     help="super-chunks between checkpoints")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda: one shard per card; a named device "
-                         "(cuda:N, cpu): --devices shards on it")
+    add_device_flag(ap, help="cuda: one shard per card; a named device "
+                             "(cuda:N, cpu): --devices shards on it")
     return ap
 
 

@@ -10,7 +10,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from tomatis_tpu_torch.cli._flags import (add_engine_flags, add_filter_flags,
+from tomatis_tpu_torch.cli._flags import (add_device_flag,
+                                          add_engine_flags, add_filter_flags,
                                           add_gate_flags, add_io_flags,
                                           add_stft_flags)
 
@@ -37,8 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--transport", default="auto",
                     choices=["auto", "wire", "pcm24", "f32"],
                     help="host<->device link transport (see process)")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     add_engine_flags(ap)
     return ap
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -23,8 +25,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sr", type=int, default=48000)
     ap.add_argument("--n_fft", type=int, default=4096)
     ap.add_argument("--hop", type=int, default=2048)
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     return ap
 
 

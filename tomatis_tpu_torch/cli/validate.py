@@ -9,6 +9,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -34,8 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hop", type=int, default=2048)
     ap.add_argument("--out_csv", default="layer1_spectrum_check.csv")
     ap.add_argument("--out_png", default="layer1_spectrum_check.png")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     from tomatis_tpu_torch.cli._sidecar import add_params_flag
     add_params_flag(ap)
     return ap

@@ -8,6 +8,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -30,8 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hop", type=int, default=2048)
     ap.add_argument("--level_percentile", type=float, default=10)
     ap.add_argument("--out_prefix", default="verify_15db_v2")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     from tomatis_tpu_torch.cli._sidecar import add_params_flag
     add_params_flag(ap)
     return ap

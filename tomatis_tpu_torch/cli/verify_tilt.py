@@ -9,6 +9,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tomatis_tpu_torch.cli._flags import add_device_flag
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -22,8 +24,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hop", type=int, default=2048)
     ap.add_argument("--c1_below", type=float, default=-45.0)
     ap.add_argument("--c2_above", type=float, default=-30.0)
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (cuda, cuda:N or cpu)")
+    add_device_flag(ap)
     return ap
 
 

@@ -1,1 +1,11 @@
-"""engine of the PyTorch port (mirrors tomatis_tpu/engine/)."""
+"""engine of the PyTorch port (mirrors tomatis_tpu/engine/).
+
+The streaming names import torch and resolve at first touch: the staging
+worker imports engine.staging, which must leave torch out.
+"""
+from tomatis_tpu_torch._lazy import lazy_getattr
+
+__getattr__ = lazy_getattr(__name__, {
+    name: ("tomatis_tpu_torch.engine.streaming", name)
+    for name in ("ChunkedStftEngine", "FlushPlan", "StreamRunner",
+                 "flush_plan")})

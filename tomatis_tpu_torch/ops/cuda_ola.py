@@ -231,8 +231,9 @@ def chunk_tail_cuda(z, win, win2, n_valid: int, out_tail, w_tail, gain_lin,
     pcm24; it is read through its pointer, so there is no host sync).
     Returns fresh tensors, as chunk_tail_plain does.
 
-    Counts each launch in ``chunk_tail_cuda.launches``, and per variant
-    in ``chunk_tail_cuda.by_variant[(norm, transport, C)]``."""
+    Counts each launch in ``chunk_tail_cuda.launches``, per variant in
+    ``chunk_tail_cuda.by_variant[(norm, transport, C)]`` and per chunk
+    size in ``chunk_tail_cuda.by_frames[F]``."""
     F, C, n_fft, hop, k = _check_tail(z, win, win2, out_tail, w_tail, norm,
                                       transport)
     pcm24 = transport == "pcm24"
@@ -271,11 +272,13 @@ def chunk_tail_cuda(z, win, win2, n_valid: int, out_tail, w_tail, gain_lin,
     _raise_on(err, "chunk-tail")
     chunk_tail_cuda.launches += 1
     chunk_tail_cuda.by_variant[(norm, transport, C)] += 1
+    chunk_tail_cuda.by_frames[F] += 1
     return out, peaks, pcm, ola_carry, w_carry
 
 
 chunk_tail_cuda.launches = 0
 chunk_tail_cuda.by_variant = collections.Counter()
+chunk_tail_cuda.by_frames = collections.Counter()
 
 
 def chunk_tail_batched_cuda(z, win, win2, n_valid, out_tail, w_tail,
