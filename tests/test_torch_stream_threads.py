@@ -163,21 +163,36 @@ def test_sinks_see_stream_order_from_one_thread():
 
 
 def test_timing_detail_env(monkeypatch):
-    """TOMATIS_TIMING_DETAIL adds one dict of stage times per chunk; the
-    stage timers are there either way."""
+    """The stage timers are there either way, each the total of a span of
+    utils/trace.py; TOMATIS_TRACE=1 (the switch that replaced
+    TOMATIS_TIMING_DETAIL and its per-chunk dicts) records the spans as
+    rows of the run's job: one stream.dispatch a chunk, at its first frame,
+    with the chunk step's enqueue and the promotion inside it."""
+    from tomatis_tpu_torch.utils import trace
+    monkeypatch.delenv("TOMATIS_TRACE", raising=False)
     sig = _sig(3.0)
     st = _runner(len(sig)).run(sig, on_audio=lambda c: None)
     assert "chunk_timings" not in st
     assert set(st["timings"]) == {"runner_setup_s", "input_host_s",
-                                  "dispatch_compute_s", "consume_s",
-                                  "final_drain_s"}
-    monkeypatch.setenv("TOMATIS_TIMING_DETAIL", "1")
+                                  "producer_wait_s", "dispatch_compute_s",
+                                  "consume_s", "final_drain_s", "decode_s",
+                                  "writer_busy_s", "encode_s"}
+    assert not [r for r in trace.rows() if r.job == st["job_id"]]
+    monkeypatch.setenv("TOMATIS_TRACE", "1")
     st = _runner(len(sig)).run(sig, on_audio=lambda c: None)
-    rows = st["chunk_timings"]
-    assert len(rows) == st["chunks"] > 3
-    assert "stage_first" in rows[0] and "stage_first" not in rows[1]
-    assert all("dispatch" in r and "promote" in r for r in rows)
-    assert "stage_next" not in rows[-1] and "retire" in rows[-1]
+    assert "chunk_timings" not in st
+    rows = [r for r in trace.rows() if r.job == st["job_id"]]
+    disp = [r for r in rows if r.name == "stream.dispatch"]
+    assert len(disp) == st["chunks"] > 3
+    assert [r.at for r in disp] == [8 * k for k in range(st["chunks"])]
+    for name in ("stream.step", "stream.promote"):
+        inner = [r for r in rows if r.name == name]
+        assert [(r.parent, r.at) for r in inner] == [
+            ("stream.dispatch", r.at) for r in disp]
+    inputs = [r.at for r in rows if r.name == "stream.input"]
+    assert inputs == [r.at for r in disp]
+    assert sum(r.name == "stream.consume" for r in rows) == \
+        st["chunks"] - 3 + 1   # every retire, then the drain
 
 
 def _in_order_run(runner, sig, on_frames):

@@ -3,7 +3,8 @@
     python -m tomatis_tpu_torch.cli.main process -i in.flac -o out.flac --gate_ui 50
 
 Takes the reference flags (tomatis_tpu/cli/process.py). --device picks the
-card (default cuda); --profile_dir writes a torch.profiler trace;
+card (default cuda); --profile_dir writes a torch.profiler trace with the
+program's spans of every thread (utils/trace.py) as tracks of their own;
 --checkpoint names a checkpoint file for crash recovery.
 """
 from __future__ import annotations
@@ -40,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="chunks between checkpoints (with --checkpoint)")
     ap.add_argument("--profile_dir", default=None,
                     help="write a torch.profiler chrome trace of the run "
-                         "here")
+                         "here, with the program's spans of every thread "
+                         "(producer, writer) as tracks of their own")
     ap.add_argument("--progress", action="store_true",
                     help="print per-chunk progress")
     ap.add_argument("--transport", default="auto",
@@ -106,15 +108,21 @@ def run(args) -> int:
     if args.profile_dir:
         import os
         import torch
+        from tomatis_tpu_torch.utils import trace
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.device(args.device).type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.profile(activities=acts) as prof, \
+                trace.timeline():
+            anchor_t = trace.anchor()
             stats = process(args.input, args.output, p, **kw)
         os.makedirs(args.profile_dir, exist_ok=True)
-        trace = os.path.join(args.profile_dir, "trace.json")
-        prof.export_chrome_trace(trace)
-        print(f"profiler trace written to {trace}")
+        path = os.path.join(args.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        n = trace.add_to_chrome_trace(
+            path, anchor_t,
+            [r for r in trace.rows() if r.job == stats["job_id"]])
+        print(f"profiler trace written to {path} ({n} program spans)")
     else:
         stats = process(args.input, args.output, p, **kw)
     n = max(1, stats["n_frames"])
@@ -128,9 +136,11 @@ def run(args) -> int:
           f"({stats['realtime_factor']:.1f}x realtime on {stats['device']})")
     t = stats.get("timings", {})
     if t:
-        print(f"stages: input {t.get('input_host_s', 0):.2f}s  "
+        print(f"stages: input {t.get('input_host_s', 0):.2f}s "
+              f"(decode {t.get('decode_s', 0):.2f}s)  "
               f"device {t.get('dispatch_compute_s', 0):.2f}s  "
-              f"readback {t.get('consume_s', 0):.2f}s")
+              f"writer wait {t.get('consume_s', 0):.2f}s "
+              f"(encode {t.get('encode_s', 0):.2f}s)")
     return 0
 
 

@@ -50,6 +50,7 @@ from tomatis_tpu_torch.engine import staging
 from tomatis_tpu_torch.ops import cuda_ola, stft
 from tomatis_tpu_torch.ops import wire as wire_ops
 from tomatis_tpu_torch.ops.dsp import EPS, PEAK_LIMIT, frame_levels_dbfs
+from tomatis_tpu_torch.utils import trace
 from tomatis_tpu_torch.utils.pcm import le24_from_i32
 from tomatis_tpu_torch.utils.pipeline import (OrderedWorker, Prefetcher,
                                               StagedPipeline)
@@ -469,6 +470,25 @@ def _read_fn(source, int_in: bool):
     return source.read_int24 if int_in else source.read
 
 
+def timed_read(read, acc: dict, job: int = 0, at=None):
+    """read(n) with every call a producer.decode span (a file's decode
+    and its int or float conversion), its time into acc["decode_s"]."""
+    def decode(n):
+        with trace.span("producer.decode", acc, "decode_s", job=job, at=at):
+            return read(n)
+    return decode
+
+
+def timed_sink(write, acc: dict, job: int = 0, at=None):
+    """The audio sink with every call a writer.encode span (for a FLAC
+    file: write_raw's le24 unpack and the native encode), its time into
+    acc["encode_s"]."""
+    def encode(chunk):
+        with trace.span("writer.encode", acc, "encode_s", job=job, at=at):
+            write(chunk)
+    return encode
+
+
 def _host(t) -> np.ndarray:
     """Device tensor (or host array) -> numpy."""
     if isinstance(t, torch.Tensor):
@@ -694,7 +714,8 @@ class StreamRunner:
     def run(self, source, on_audio: Callable | None = None,
             on_frames: Callable | None = None, ckpt=None,
             resume_state: dict | None = None,
-            on_progress: Callable | None = None) -> dict:
+            on_progress: Callable | None = None,
+            job: int | None = None) -> dict:
         """ckpt: optional engine.checkpoint.CheckpointManager; the stream
         state is saved before the dispatch of every ckpt.every-th chunk.
         resume_state: a state dict previously returned by ckpt.load(); the
@@ -704,8 +725,11 @@ class StreamRunner:
 
         The sinks (on_audio, on_frames, on_progress) are invoked in stream
         order but from a background worker thread. A sink exception fails
-        the run."""
-        t_run = time.perf_counter()
+        the run.
+
+        job: the utils.trace job id the run's spans carry (a new one when
+        None); stats["job_id"] holds it."""
+        job = trace.new_job() if job is None else job
         eng, plan = self.engine, self.plan
         hop, C, F_c = eng.hop, eng.channels, eng.frames_per_chunk
         pad, n_frames = plan.pad, plan.n_frames
@@ -714,11 +738,31 @@ class StreamRunner:
         if self.total <= 0 or n_frames <= 0:
             self.stats = dict(n_frames=0, c1_frames=0, c2_frames=0,
                               c1_ratio=0.0, c2_ratio=0.0, chunks=0,
-                              timings={})
+                              timings={}, job_id=job)
             return self.stats
 
-        ctl_carry = self.controller.init_carry()
-        out_tail, w_tail = eng.zero_tails()
+        # Host wall time per stage, each key the total of the
+        # utils.trace spans of its name. Calling thread: stream.setup
+        # (carries, tails, resume, reader, helper threads; the caller adds
+        # the runner's construction), stream.input (stream.producer_wait
+        # and stream.upload: the upload and the unpack's enqueue),
+        # stream.dispatch (stream.step: the chunk step's enqueue;
+        # stream.promote: S1/S2), stream.consume (the S3 waits:
+        # stream.readback; the writer's back-pressure and joins:
+        # stream.backpressure) and stream.final_drain (the stream tail and
+        # the last flush cut). Producer thread: producer.decode (the
+        # source's reads). Writer thread: writer.job (a chunk's whole host
+        # half), writer.csv (on_frames; a row only) and writer.encode
+        # (on_audio, on the calling thread too for the last flush cut).
+        timings = dict.fromkeys(
+            ("runner_setup_s", "input_host_s", "producer_wait_s",
+             "dispatch_compute_s", "consume_s", "final_drain_s",
+             "decode_s", "writer_busy_s", "encode_s"), 0.0)
+
+        def span(name, key=None, at=None):
+            return trace.span(name, timings if key else None, key, job=job,
+                              at=at)
+
         wire = self.transport == "wire"
         byte_payload = self.transport in ("pcm24", "wire")
         sink = SinkState(pad)
@@ -726,47 +770,63 @@ class StreamRunner:
         self.wire_stats = {"in_bytes": 0, "out_bytes": 0,
                            "in_raw_chunks": 0}
         frame0 = 0
+        write = (timed_sink(on_audio, timings, job)
+                 if on_audio is not None else None)
+        rows_out = None
+        if on_frames is not None:
+            def rows_out(f0, starts, log):
+                with span("writer.csv"):
+                    on_frames(f0, starts, log)
 
-        if resume_state is not None:
-            sc = resume_state["__meta__"]["scalars"]
-            frame0 = int(sc["frame0"])
-            sink.out_base = int(sc["out_base"])
-            sink.cut_i = int(sc["cut_i"])
-            self.audio_samples_written = int(sc["audio_samples_written"])
-            sink.states_count = resume_state["states_count"].copy()
-            leaves = [torch.as_tensor(resume_state[f"carry{i}"], device=dev)
-                      for i in range(int(sc["n_carry_leaves"]))]
-            ctl_carry = _carry_like(ctl_carry, leaves)
-            out_tail = torch.as_tensor(resume_state["out_tail"], device=dev)
-            w_tail = torch.as_tensor(resume_state["w_tail"], device=dev)
-            if resume_state["out_pend"].size:
-                sink.out_pend = [resume_state["out_pend"]]
-            if resume_state["peak_pend"].size:
-                sink.peak_pend = [resume_state["peak_pend"]]
-            fr = resume_state.get("ref_floats")
-            if fr is not None and fr.size:
-                # the pre-quantisation floats of the pending samples, held
-                # on the host from here on (_gather_floats takes both)
-                sink.float_refs = [(sink.out_base, len(fr), fr)]
+        with span("stream.setup", "runner_setup_s"):
+            ctl_carry = self.controller.init_carry()
+            out_tail, w_tail = eng.zero_tails()
+            if resume_state is not None:
+                sc = resume_state["__meta__"]["scalars"]
+                frame0 = int(sc["frame0"])
+                sink.out_base = int(sc["out_base"])
+                sink.cut_i = int(sc["cut_i"])
+                self.audio_samples_written = int(sc["audio_samples_written"])
+                sink.states_count = resume_state["states_count"].copy()
+                leaves = [torch.as_tensor(resume_state[f"carry{i}"],
+                                          device=dev)
+                          for i in range(int(sc["n_carry_leaves"]))]
+                ctl_carry = _carry_like(ctl_carry, leaves)
+                out_tail = torch.as_tensor(resume_state["out_tail"],
+                                           device=dev)
+                w_tail = torch.as_tensor(resume_state["w_tail"], device=dev)
+                if resume_state["out_pend"].size:
+                    sink.out_pend = [resume_state["out_pend"]]
+                if resume_state["peak_pend"].size:
+                    sink.peak_pend = [resume_state["peak_pend"]]
+                fr = resume_state.get("ref_floats")
+                if fr is not None and fr.size:
+                    # the pre-quantisation floats of the pending samples,
+                    # held on the host from here on (_gather_floats takes
+                    # both)
+                    sink.float_refs = [(sink.out_base, len(fr), fr)]
 
-        # Float-free input: when the source reads losslessly as PCM_24
-        # ints and the wire codec ships the input, the whole host input
-        # path stays integer (no float conversion, no exactness check).
-        int_in = (self.wire_input and not isinstance(source, np.ndarray)
-                  and getattr(source, "int24_readable", False))
+            # Float-free input: when the source reads losslessly as PCM_24
+            # ints and the wire codec ships the input, the whole host
+            # input path stays integer (no float conversion, no exactness
+            # check).
+            int_in = (self.wire_input and not isinstance(source, np.ndarray)
+                      and getattr(source, "int24_readable", False))
 
-        # rolling input in absolute sample coordinates (the stream starts
-        # at -pad); a resumed run seeks the source to its first chunk
-        in_base = -pad + frame0 * hop
-        if in_base > 0:
-            if isinstance(source, np.ndarray):
-                source = source[in_base:]
-            else:
-                source.seek(in_base)
-        reader = RollingReader(_read_fn(source, int_in), C,
-                               dtype=np.int32 if int_in else np.float32,
-                               left_pad=max(0, -in_base), base=in_base,
-                               block=eng.emit_len)
+            # rolling input in absolute sample coordinates (the stream
+            # starts at -pad); a resumed run seeks the source to its first
+            # chunk
+            in_base = -pad + frame0 * hop
+            if in_base > 0:
+                if isinstance(source, np.ndarray):
+                    source = source[in_base:]
+                else:
+                    source.seek(in_base)
+            reader = RollingReader(
+                timed_read(_read_fn(source, int_in), timings, job), C,
+                dtype=np.int32 if int_in else np.float32,
+                left_pad=max(0, -in_base), base=in_base,
+                block=eng.emit_len)
 
         def consume_host(ready, mat):
             """Writer-thread half: decode the payload (the C++ wire decode
@@ -785,7 +845,7 @@ class StreamRunner:
             else:
                 payload, aux = mat
             sink.route(self, c_eng, c_frame0, c_nf, payload, aux,
-                       c_out_dev, on_frames, on_audio, byte_payload)
+                       c_out_dev, rows_out, write, byte_payload)
 
         def save_checkpoint():
             """The state before the dispatch of the chunk at frame0, as
@@ -873,10 +933,13 @@ class StreamRunner:
                 return Prefetcher(produce(frame0)), False
             return _ProcessPrefetch(stream, e_list), True
 
-        def next_staged():
-            item, e_i = prefetch.get()
-            return stage_to_device(item, e_i.chunk_input_len, C,
-                                   self.wire_stats, dev)
+        def next_staged(at):
+            with span("stream.input", "input_host_s", at):
+                with span("stream.producer_wait", "producer_wait_s"):
+                    item, e_i = prefetch.get()
+                with span("stream.upload"):
+                    return stage_to_device(item, e_i.chunk_input_len, C,
+                                           self.wire_stats, dev)
 
         # Software pipeline, depth 3. Per iteration k:
         #   dispatch chunk k                (async; input staged last iter)
@@ -886,18 +949,7 @@ class StreamRunner:
         #   S3 on chunk k-3: wait the copies (long since done), hand the
         #                    host half to the ordered writer thread
         # The device executes in enqueue order on one stream, so chunk
-        # k's step is enqueued before chunk k+1's input unpack. Host wall
-        # time of this thread per stage: runner set-up (here: carries,
-        # tails, resume, reader, helper threads; the caller adds the
-        # runner's construction), input (producer wait + upload + unpack
-        # enqueue), dispatch (chunk step enqueue + S1/S2), consume (the
-        # S3 waits and the writer's back-pressure; decode, drain and
-        # write run on the writer thread and overlap the other stages),
-        # and the final drain (stream tail and the last flush cut).
-        timings = {"runner_setup_s": 0.0, "input_host_s": 0.0,
-                   "dispatch_compute_s": 0.0, "consume_s": 0.0,
-                   "final_drain_s": 0.0}
-        detail = [] if os.environ.get("TOMATIS_TIMING_DETAIL") else None
+        # k's step is enqueued before chunk k+1's input unpack.
         chunks = 0
         staged = None
 
@@ -905,14 +957,23 @@ class StreamRunner:
             ck["ready"][2].start_stream()
 
         def pipe_finish(ck):
-            mat = ck["ready"][2].materialize()
+            at = ck["ready"][0]
+            with span("stream.readback", at=at):
+                mat = ck["ready"][2].materialize()
 
-            def job(iv=ck["ready"], m=mat):
-                consume_host(iv, m)
-                if on_progress is not None:
-                    # frames fully processed and written so far
-                    on_progress(iv[0] + iv[1], n_frames)
-            writer.submit(job)
+            def host_half(iv=ck["ready"], m=mat):
+                with span("writer.job", "writer_busy_s", iv[0]):
+                    consume_host(iv, m)
+                    if on_progress is not None:
+                        # frames fully processed and written so far
+                        on_progress(iv[0] + iv[1], n_frames)
+            with span("stream.backpressure", at=at):
+                writer.submit(host_half)
+
+        def drain_all():
+            pipe.drain()
+            with span("stream.backpressure"):
+                writer.check(join=True)
 
         pipe = StagedPipeline(pipe_start, pipe_finish)
 
@@ -920,10 +981,10 @@ class StreamRunner:
         writer = prefetch = None
         decode_offload = False
         try:
-            writer = OrderedWorker()
-            prefetch, decode_offload = start_producer()
+            with span("stream.setup", "runner_setup_s"):
+                writer = OrderedWorker()
+                prefetch, decode_offload = start_producer()
             producer = "process" if decode_offload else "thread"
-            timings["runner_setup_s"] = time.perf_counter() - t_run
             while frame0 < n_frames:
                 eng_i, fn_i = self._by_F[self._chunk_F(frame0)]
                 nf = min(eng_i.frames_per_chunk, n_frames - frame0)
@@ -934,61 +995,39 @@ class StreamRunner:
                     # must be consumed and drained before its state is
                     # captured, so the pipeline stalls here (checkpoints
                     # are many chunks apart)
-                    _t = time.perf_counter()
-                    pipe.drain()
-                    writer.check(join=True)
-                    timings["consume_s"] += time.perf_counter() - _t
+                    with span("stream.consume", "consume_s", frame0):
+                        drain_all()
                     save_checkpoint()
                 chunks += 1
-                _d = {} if detail is not None else None
                 if staged is None:
-                    _t = time.perf_counter()
-                    staged = next_staged()
-                    timings["input_host_s"] += time.perf_counter() - _t
-                    if _d is not None:
-                        _d["stage_first"] = time.perf_counter() - _t
+                    staged = next_staged(frame0)
 
-                _t = time.perf_counter()
-                payload, aux, out_dev, ctl_carry, out_tail, w_tail = fn_i(
-                    staged, nf, ctl_carry, out_tail, w_tail,
-                    self.ctl_params, self.gain_f32)
-                rb = (ChunkReadback([aux], stream=payload) if wire
-                      else ChunkReadback([payload, aux]))
-                if _d is not None:
-                    _d["dispatch"] = time.perf_counter() - _t
-                pipe.push((frame0, nf, rb, out_dev, eng_i), rb)
+                with span("stream.dispatch", "dispatch_compute_s", frame0):
+                    with span("stream.step"):
+                        (payload, aux, out_dev, ctl_carry, out_tail,
+                         w_tail) = fn_i(staged, nf, ctl_carry, out_tail,
+                                        w_tail, self.ctl_params,
+                                        self.gain_f32)
+                        rb = (ChunkReadback([aux], stream=payload) if wire
+                              else ChunkReadback([payload, aux]))
+                    pipe.push((frame0, nf, rb, out_dev, eng_i), rb)
+                    # promote older chunks one pipeline stage each (oldest
+                    # first, capped at S2; S3 is the retire step below)
+                    with span("stream.promote"):
+                        pipe.promote()
                 frame0 += nf
-
-                # promote older chunks one pipeline stage each (oldest
-                # first, capped at S2; S3 is the retire step below)
-                _p = time.perf_counter()
-                pipe.promote()
-                timings["dispatch_compute_s"] += time.perf_counter() - _t
-                if _d is not None:
-                    _d["promote"] = time.perf_counter() - _p
 
                 # stage the next chunk's input while the device works
                 staged = None
                 if frame0 < n_frames:
-                    _t = time.perf_counter()
-                    staged = next_staged()
-                    timings["input_host_s"] += time.perf_counter() - _t
-                    if _d is not None:
-                        _d["stage_next"] = time.perf_counter() - _t
+                    staged = next_staged(frame0)
 
                 # retire the chunk whose readback has had a full iteration
-                _t = time.perf_counter()
-                if pipe.retire():
-                    timings["consume_s"] += time.perf_counter() - _t
-                    if _d is not None:
-                        _d["retire"] = time.perf_counter() - _t
-
-                if detail is not None:
-                    detail.append(_d)
-            _t = time.perf_counter()
-            pipe.drain()
-            writer.check(join=True)
-            timings["consume_s"] += time.perf_counter() - _t
+                if pipe.due():
+                    with span("stream.consume", "consume_s"):
+                        pipe.retire()
+            with span("stream.consume", "consume_s"):
+                drain_all()
         finally:
             # stop a producer that is still blocked on a full queue (an
             # exception above leaves un-got items) and shut the writer
@@ -1000,12 +1039,11 @@ class StreamRunner:
         # if the last chunk was full, the stream's tail is still in the
         # carry (a checkpoint is always taken before a chunk's dispatch, so
         # a resumed run re-enters the loop and derives last_full again)
-        t0 = time.perf_counter()
-        if last_full:
-            sink.append_tail(self, eng, n_frames, out_tail, w_tail,
-                             byte_payload)
-        sink.final_drain(self, on_audio)
-        timings["final_drain_s"] = time.perf_counter() - t0
+        with span("stream.final_drain", "final_drain_s"):
+            if last_full:
+                sink.append_tail(self, eng, n_frames, out_tail, w_tail,
+                                 byte_payload)
+            sink.final_drain(self, write)
 
         sc_ = sink.states_count
         total_f = int(sc_[1] + sc_[2])
@@ -1019,10 +1057,8 @@ class StreamRunner:
             timings={k: round(v, 4) for k, v in timings.items()},
             wire=dict(self.wire_stats),
             producer=producer,
+            job_id=job,
         )
-        if detail is not None:
-            self.stats["chunk_timings"] = [
-                {k: round(v, 4) for k, v in d.items()} for d in detail]
         return self.stats
 
     def _drain(self, out_pend, peak_pend, float_refs, cut_i, out_base,

@@ -20,6 +20,7 @@ from tomatis_tpu_torch.io import audio
 from tomatis_tpu_torch.io.wav import WavWriter
 from tomatis_tpu_torch.models.controllers import GateSelectController
 from tomatis_tpu_torch.ops import dsp, gate as gate_ops, stft
+from tomatis_tpu_torch.utils import trace
 from tomatis_tpu_torch.utils.device import resolve_device
 from tomatis_tpu_torch.utils.pcm import i32_from_le24
 from tomatis_tpu_torch.utils.stateio import StateCsvWriter
@@ -110,25 +111,27 @@ def run_array(build_runner, x: np.ndarray, transport: str):
     """Run x [N, C] through the runner that build_runner() makes and
     collect the output as floats: (y [N, C] float32, stats). Shared by the
     processors' process_array. The runner's construction and the decode of
-    the collected output are timed into stats["timings"] beside the
-    stream's own stages: runner_setup_s, and output_decode_s (the join of
-    the flushes and, for pcm24 and wire, the numpy PCM_24 decode)."""
-    t0 = time.perf_counter()
-    runner = build_runner()
-    setup_s = time.perf_counter() - t0
+    the collected output are spans of the run's job, timed into
+    stats["timings"] beside the stream's own stages: runner_setup_s
+    (stream.setup), and output_decode_s (array.collect: the join of the
+    flushes and, for pcm24 and wire, the numpy PCM_24 decode)."""
+    job, pre = trace.new_job(), {}
+    with trace.span("stream.setup", pre, "runner_setup_s", job=job):
+        runner = build_runner()
     outs = []
-    stats = runner.run(x, on_audio=outs.append)
+    stats = runner.run(x, on_audio=outs.append, job=job)
     if not outs:
         return np.zeros_like(x), stats
-    t0 = time.perf_counter()
-    if transport in ("pcm24", "wire"):
-        v = i32_from_le24(np.concatenate(outs))
-        y = (v.astype(np.float32) / 8388608.0).reshape(-1, x.shape[1])
-    else:
-        y = np.concatenate(outs, 0)
+    with trace.span("array.collect", pre, "output_decode_s", job=job):
+        if transport in ("pcm24", "wire"):
+            v = i32_from_le24(np.concatenate(outs))
+            y = (v.astype(np.float32) / 8388608.0).reshape(-1, x.shape[1])
+        else:
+            y = np.concatenate(outs, 0)
     timings = stats["timings"]
-    timings["runner_setup_s"] = round(timings["runner_setup_s"] + setup_s, 4)
-    timings["output_decode_s"] = round(time.perf_counter() - t0, 4)
+    timings["runner_setup_s"] = round(timings["runner_setup_s"]
+                                      + pre["runner_setup_s"], 4)
+    timings["output_decode_s"] = round(pre["output_decode_s"], 4)
     return y, stats
 
 
@@ -171,8 +174,12 @@ def process_file(in_path, out_path, p, model: str, build_runner,
     processors: input checks, checkpoint fingerprint, sink, state CSV,
     run, finalize. p is the processor's params dataclass (its fields are
     the fingerprint, with `model`); build_runner(sr, ch, total, transport)
-    makes the StreamRunner; csv_kwargs go to StateCsvWriter."""
+    makes the StreamRunner; csv_kwargs go to StateCsvWriter. The runner's
+    construction adds to stats["timings"]["runner_setup_s"] (a
+    stream.setup span) and the sink's close, for FLAC the last partial
+    block and the header rewrite, to its encode_s (writer.close)."""
     t_start = time.perf_counter()
+    job, pre = trace.new_job(), {}
     # resolve the transport before any file is opened: a rejected value
     # must not truncate an existing output. Every sink here is PCM_24 (WAV
     # or FLAC, including the checkpoint's staging WAV) and takes raw bytes.
@@ -203,9 +210,9 @@ def process_file(in_path, out_path, p, model: str, build_runner,
         try:
             if not fout.supports_raw:
                 raise RuntimeError("process() sinks must take raw PCM_24")
-            t0 = time.perf_counter()
-            runner = build_runner(sr, ch, total, transport)
-            setup_s = time.perf_counter() - t0
+            with trace.span("stream.setup", pre, "runner_setup_s",
+                            job=job):
+                runner = build_runner(sr, ch, total, transport)
             resume_frame = None
             if resume_state is not None:
                 resume_frame = resume_state["__meta__"]["scalars"][
@@ -219,7 +226,10 @@ def process_file(in_path, out_path, p, model: str, build_runner,
                                          else fout.write),
                                on_frames=csvw.on_frames if csvw else None,
                                ckpt=ckpt, resume_state=resume_state,
-                               on_progress=progress)
+                               on_progress=progress, job=job)
+            with trace.span("writer.close", stats["timings"] or None,
+                            "encode_s", job=job):
+                fout.close()
         finally:
             fout.close()
             if csvw:
@@ -227,9 +237,11 @@ def process_file(in_path, out_path, p, model: str, build_runner,
         actual_out = (finalize_checkpointed_sink(ckpt, stage_path, out_path)
                       or actual_out)
 
-    if stats["timings"]:
-        stats["timings"]["runner_setup_s"] = round(
-            stats["timings"]["runner_setup_s"] + setup_s, 4)
+    t = stats["timings"]
+    if t:
+        t["runner_setup_s"] = round(t["runner_setup_s"]
+                                    + pre["runner_setup_s"], 4)
+        t["encode_s"] = round(t["encode_s"], 4)
     wall = time.perf_counter() - t_start
     stats.update(params=asdict(p), sr=sr, channels=ch, total=total,
                  threshold_dbfs=p.threshold_dbfs(), out_path=actual_out,

@@ -60,7 +60,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -72,18 +71,24 @@ from tomatis_tpu_torch.engine.streaming import (WIRE_RICE_IN,
                                                 StreamRunner,
                                                 probe_d2h_mbps,
                                                 resolve_rice_out,
-                                                stage_encode)
+                                                stage_encode, timed_read,
+                                                timed_sink)
 from tomatis_tpu_torch.io import audio, wirecodec
 from tomatis_tpu_torch.ops import wire as wire_ops
+from tomatis_tpu_torch.utils import trace
 from tomatis_tpu_torch.utils.device import resolve_device, resolve_devices
 from tomatis_tpu_torch.utils.pipeline import (OrderedWorker, Prefetcher,
                                               StagedPipeline)
 from tomatis_tpu_torch.utils.rolling import RollingReader
 from tomatis_tpu_torch.utils.stateio import StateCsvWriter
 
-# wall time per stage of the most recent process_batch call: the calling
-# thread's stages, the producer's reads (read_s) and each lane's writer
-# thread's busy time (lane_write_s)
+# the most recent process_batch call: its batch chunks, the launches per
+# lane block, the devices, the transport and the utils.trace job id; and
+# span totals of utils/trace.py: the producer's wall time in the lanes'
+# reads (read_s, batch.read) and, one entry per lane, its reads' decode
+# time (lane_decode_s, producer.decode on the pool), its writer thread's
+# busy time (lane_write_s, writer.job) and its sink writes and the
+# encoder's close (lane_encode_s, writer.encode and writer.close)
 LAST_TIMINGS: dict = {}
 
 # link bytes of the most recent wire-transport process_batch call (empty
@@ -108,7 +113,7 @@ class _Lane:
     thread; each side closes its own handles."""
 
     def __init__(self, in_path, out_path, runner: StreamRunner,
-                 state_csv_path=None):
+                 state_csv_path=None, index: int = 0, job: int = 0):
         self.in_path = str(in_path)
         self.out_path = str(out_path)
         self.runner = runner
@@ -123,7 +128,11 @@ class _Lane:
         self.sink = SinkState(self.plan.pad)
         self.failed = None
         self.done = False
-        self.write_s = 0.0      # its writer thread's busy time
+        self.index, self.job = index, job
+        # span totals: decode_s (its reads), write_s (its writer thread's
+        # busy time), encode_s (its sink writes and the encoder's close)
+        self.timings = {"decode_s": 0.0, "write_s": 0.0, "encode_s": 0.0}
+        self.write = None
 
     @property
     def n_frames(self):
@@ -132,12 +141,14 @@ class _Lane:
     def open(self, sr, ch):
         self.sr = sr
         self.reader = audio.AudioFile(self.in_path, "r")
-        self.rolling = RollingReader(self.reader.read, ch,
-                                     left_pad=self.plan.pad,
-                                     base=-self.plan.pad,
-                                     block=self.eng.emit_len)
+        self.rolling = RollingReader(
+            timed_read(self.reader.read, self.timings, self.job, self.index),
+            ch, left_pad=self.plan.pad, base=-self.plan.pad,
+            block=self.eng.emit_len)
         self.writer = audio.AudioFile(self.out_path, "w", samplerate=sr,
                                       channels=ch, subtype="PCM_24")
+        self.write = timed_sink(lambda raw: self.writer.write_raw(raw),
+                                self.timings, self.job, self.index)
         if self.state_csv_path:
             self.csvw = StateCsvWriter(self.state_csv_path, sr,
                                        self.runner.total)
@@ -153,8 +164,11 @@ class _Lane:
         self.reader = None
 
     def close_output(self):
-        for h in (self.writer, self.csvw):
-            _close(h)
+        if self.writer is not None:
+            with trace.span("writer.close", self.timings, "encode_s",
+                            job=self.job, at=self.index):
+                _close(self.writer)
+        _close(self.csvw)
         self.writer = self.csvw = None
 
     def consume(self, c_frame0, c_nf, payload, aux, out_dev):
@@ -162,14 +176,14 @@ class _Lane:
         SinkState (one routing implementation with the single-file run)."""
         self.sink.route(self.runner, self.eng, c_frame0, c_nf, payload, aux,
                         out_dev, self.csvw.on_frames if self.csvw else None,
-                        self.writer.write_raw)
+                        self.write)
 
     def finish(self, out_tail, w_tail):
         if self.n_frames % self.eng.frames_per_chunk == 0 \
                 and self.n_frames > 0:
             self.sink.append_tail(self.runner, self.eng, self.n_frames,
                                   out_tail, w_tail)
-        self.sink.final_drain(self.runner, self.writer.write_raw)
+        self.sink.final_drain(self.runner, self.write)
         self.close_output()
         self.done = True
 
@@ -340,10 +354,12 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
     to a multiple of the device count with idle lanes and lane block k
     runs on devices[k]; each lane's bytes are those of the single-device
     run. The link transport is batch_transport()'s choice (the same bytes
-    either way); LAST_TIMINGS["transport"] names it."""
+    either way); LAST_TIMINGS["transport"] names it and
+    LAST_TIMINGS["job_id"] holds the call's utils.trace job id."""
     from tomatis_tpu_torch.models.standard import (StandardParams,
                                                    build_controller)
     LAST_WIRE.clear()
+    job = trace.new_job()
     p = params or StandardParams()
     jobs = list(jobs)
     B = len(jobs)
@@ -394,13 +410,14 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
                                                              "ctl"))
 
     lanes = []
-    for (in_path, out_path), m, csvp in zip(jobs, metas, csvs):
+    for i, ((in_path, out_path), m, csvp) in enumerate(zip(jobs, metas,
+                                                             csvs)):
         runner = StreamRunner(engine, controller,
                               total=0 if isinstance(m, Exception)
                               else m.frames,
                               output_gain_db=p.output_gain_db,
                               transport="pcm24", build_chunk_fn=False)
-        lane = _Lane(in_path, out_path, runner, csvp)
+        lane = _Lane(in_path, out_path, runner, csvp, index=i, job=job)
         if isinstance(m, Exception):
             lane.fail(m)
         elif p.require_48k_stereo and (m.samplerate != 48000
@@ -449,49 +466,49 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         with zeros (its wire stream the zero stream) and 0 frames. A read
         error rides the item and fails that lane on the calling thread;
         the producer closes the reader of a lane it has finished with. Its
-        wall time in the lanes' reads goes to timings["read_s"]. Yields
-        (item, frame counts, errors); item ("f32", sig, nv) or ("wire",
-        flat, offsets, lengths)."""
+        wall time in the lanes' reads is a batch.read span, summed in
+        timings["read_s"]. Yields (item, frame counts, errors); item
+        ("f32", sig, nv) or ("wire", flat, offsets, lengths)."""
         pf0 = [0] * B
         dead = [lane.failed is not None for lane in lanes]
         pin = blocks[0]
         while True:
-            _t = time.perf_counter()
-            nv = _host_buffer((Bp,), torch.int32, pin)
-            nfs = nv.numpy()
-            nfs[:] = 0
-            sig = sig_np = None
-            if not wire:
-                sig = _host_buffer((Bp, L, ch), torch.float32, pin)
-                sig_np = sig.numpy()
-                sig_np[B:] = 0.0      # the idle lanes that pad the blocks
-            errs, reads, got = {}, {}, {}
-            for i, lane in enumerate(lanes):
-                nf = min(F, lane.n_frames - pf0[i])
-                if dead[i] or lane.failed is not None or nf <= 0:
-                    if not dead[i] and lane.failed is not None:
+            with trace.span("batch.read", timings, "read_s", job=job):
+                nv = _host_buffer((Bp,), torch.int32, pin)
+                nfs = nv.numpy()
+                nfs[:] = 0
+                sig = sig_np = None
+                if not wire:
+                    sig = _host_buffer((Bp, L, ch), torch.float32, pin)
+                    sig_np = sig.numpy()
+                    sig_np[B:] = 0.0   # the idle lanes that pad the blocks
+                errs, reads, got = {}, {}, {}
+                for i, lane in enumerate(lanes):
+                    nf = min(F, lane.n_frames - pf0[i])
+                    if dead[i] or lane.failed is not None or nf <= 0:
+                        if not dead[i] and lane.failed is not None:
+                            dead[i] = True
+                            lane.close_input()
+                        if sig_np is not None:
+                            sig_np[i] = 0.0
+                        continue
+                    start = -lane.plan.pad + pf0[i] * hop
+                    reads[i] = (nf, pool.submit(read_encode, lane, start, nf)
+                                if wire else pool.submit(
+                                    read_window, lane, start, nf,
+                                    sig_np[i]))
+                for i, (nf, fut) in reads.items():
+                    try:
+                        got[i] = fut.result()
+                    except Exception as e:
+                        errs[i] = e
                         dead[i] = True
-                        lane.close_input()
-                    if sig_np is not None:
-                        sig_np[i] = 0.0
-                    continue
-                start = -lane.plan.pad + pf0[i] * hop
-                reads[i] = (nf, pool.submit(read_encode, lane, start, nf)
-                            if wire else pool.submit(read_window, lane,
-                                                     start, nf, sig_np[i]))
-            for i, (nf, fut) in reads.items():
-                try:
-                    got[i] = fut.result()
-                except Exception as e:
-                    errs[i] = e
-                    dead[i] = True
-                    lanes[i].close_input()
-                    if sig_np is not None:
-                        sig_np[i] = 0.0
-                    continue
-                pf0[i] += nf
-                nfs[i] = nf
-            timings["read_s"] += time.perf_counter() - _t
+                        lanes[i].close_input()
+                        if sig_np is not None:
+                            sig_np[i] = 0.0
+                        continue
+                    pf0[i] += nf
+                    nfs[i] = nf
             if not nfs.any() and not errs:
                 return
             if not wire:
@@ -521,9 +538,7 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
     params = [steps[str(dv)]["ctl"].params() for dv in blocks]
     gains = [torch.tensor(lanes[0].runner.output_gain, dtype=torch.float32,
                           device=dv) for dv in blocks]
-    timings = {"stage_s": 0.0, "dispatch_s": 0.0, "block_s": 0.0,
-               "consume_s": 0.0, "finish_s": 0.0, "chunks": 0,
-               "read_s": 0.0, "block_launches": [0] * D}
+    timings = {"chunks": 0, "read_s": 0.0, "block_launches": [0] * D}
     wire_acct = {"in_used": 0, "in_shipped": 0, "out_used": 0,
                  "out_shipped": 0, "in_raw_chunks": 0}
     writers: dict = {}
@@ -535,25 +550,25 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         lane = lanes[i]
         if lane.failed is not None:
             return
-        t0 = time.perf_counter()
-        try:
-            lane.consume(c_frame0, c_nf, payload(), aux, out_dev)
-        except Exception as e:
-            lane.fail(e)
-            lane.close_output()
-        lane.write_s += time.perf_counter() - t0
+        with trace.span("writer.job", lane.timings, "write_s", job=job,
+                        at=i):
+            try:
+                lane.consume(c_frame0, c_nf, payload(), aux, out_dev)
+            except Exception as e:
+                lane.fail(e)
+                lane.close_output()
 
     def finish(i, out_tail, w_tail):
         lane = lanes[i]
         if lane.failed is not None:
             return
-        t0 = time.perf_counter()
-        try:
-            lane.finish(out_tail, w_tail)
-        except Exception as e:
-            lane.fail(e)
-            lane.close_output()
-        lane.write_s += time.perf_counter() - t0
+        with trace.span("writer.job", lane.timings, "write_s", job=job,
+                        at=i):
+            try:
+                lane.finish(out_tail, w_tail)
+            except Exception as e:
+                lane.fail(e)
+                lane.close_output()
 
     def wire_payloads(host, act):
         """wire: lane i -> a callable decoding its slice of the fetched
@@ -576,7 +591,8 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         """S3: wait the readback out and hand each active lane's rows to
         its writer thread."""
         frame0s, nfs_c, act_c, rb, out_devs = ck["ready"]
-        parts = rb.materialize()
+        with trace.span("batch.readback", job=job):
+            parts = rb.materialize()
         if wire:
             rows = wire_payloads(parts[0], act_c)
         else:
@@ -586,15 +602,17 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
                     k, j = divmod(i, Bl)
                     pcm_np, aux_np = parts[k]
                     rows[i] = (lambda pcm=pcm_np[j]: pcm, aux_np[j])
-        for i, (payload, aux) in rows.items():
-            k, j = divmod(i, Bl)
-            writers[i].submit(
-                lambda i=i, payload=payload, aux=aux, od=out_devs[k][j]:
-                route(i, frame0s[i], int(nfs_c[i]), payload, aux, od))
+        with trace.span("batch.backpressure", job=job):
+            for i, (payload, aux) in rows.items():
+                k, j = divmod(i, Bl)
+                writers[i].submit(
+                    lambda i=i, payload=payload, aux=aux, od=out_devs[k][j]:
+                    route(i, frame0s[i], int(nfs_c[i]), payload, aux, od))
 
     def join_writers():
-        for w in writers.values():
-            w.check(join=True)
+        with trace.span("batch.backpressure", job=job):
+            for w in writers.values():
+                w.check(join=True)
 
     def upload(item, act):
         """Calling thread: each lane block's (signal, n_valid, active) on
@@ -621,11 +639,12 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
                 for k, dv in enumerate(blocks)]
 
     prefetch = None
-    pool = ThreadPoolExecutor(max_workers=min(8, max(1, B)))
+    pool = ThreadPoolExecutor(max_workers=min(8, max(1, B)),
+                              thread_name_prefix="batch-read")
     try:
         for i, lane in enumerate(lanes):
             if lane.failed is None:
-                writers[i] = OrderedWorker()
+                writers[i] = OrderedWorker(name=f"writer-lane{i}")
         prefetch = Prefetcher(produce())
         # depth 1: a chunk is handed to the writers as soon as the next
         # one is enqueued (its compute and readback take milliseconds on a
@@ -635,80 +654,81 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         # 4th chunk. S2 fetches the wire stream (a no-op on pcm24).
         pipe = StagedPipeline(lambda ck: ck["ready"][3].start_stream(),
                               pipe_finish, depth=1)
+        # the calling thread's spans (batch.stage: the producer wait and
+        # the upload; batch.dispatch, batch.promote, batch.consume,
+        # batch.finish) are rows of the timeline alone
         while True:
-            _t = time.perf_counter()
-            try:
-                item, nfs, errs = prefetch.get()
-            except StopIteration:
-                break
-            for i, e in errs.items():
-                lanes[i].fail(e)
-                writers[i].submit(lanes[i].close_output)
-            if not nfs.any():
-                continue
-            if all(lane.failed is not None for lane in lanes):
-                break   # nothing left to route; drop the staged chunk
-            # dispatch-time active mask: it decides both the device's
-            # compaction of the wire output and the host's slices of it (a
-            # lane failing after this point ships its bytes once, unrouted)
-            act = np.array([i < B and nfs[i] > 0 and lanes[i].failed is None
-                            for i in range(Bp)])
-            staged = upload(item, act)
-            timings["stage_s"] += time.perf_counter() - _t
-            _t = time.perf_counter()
-            fetch, out_devs = [], []
-            for k, (dv, (sig_d, nv_d, act_d)) in enumerate(zip(blocks,
-                                                                staged)):
-                rows = slice(k * Bl, (k + 1) * Bl)
-                (payload, aux, out_dev, carries[rows], out_tail_b[k],
-                 w_tail_b[k]) = steps[str(dv)]["fn"](
-                    sig_d, nv_d, carries[rows], out_tail_b[k], w_tail_b[k],
-                    params[k], gains[k])
-                timings["block_launches"][k] += 1
-                if wire:
-                    words, used = payload
-                    fetch.append((dv, [aux, used],
-                                  _flatten_words(words, used, act_d)))
-                else:
-                    fetch.append((dv, [payload, aux], None))
-                out_devs.append(out_dev)
-            rb = _BlockReadback(fetch)
-            timings["dispatch_s"] += time.perf_counter() - _t
+            with trace.span("batch.stage", job=job):
+                try:
+                    item, nfs, errs = prefetch.get()
+                except StopIteration:
+                    break
+                for i, e in errs.items():
+                    lanes[i].fail(e)
+                    writers[i].submit(lanes[i].close_output)
+                if not nfs.any():
+                    continue
+                if all(lane.failed is not None for lane in lanes):
+                    break   # nothing left to route; drop the staged chunk
+                # dispatch-time active mask: it decides both the device's
+                # compaction of the wire output and the host's slices of it
+                # (a lane failing after this point ships its bytes once,
+                # unrouted)
+                act = np.array([i < B and nfs[i] > 0
+                                and lanes[i].failed is None
+                                for i in range(Bp)])
+                staged = upload(item, act)
+            with trace.span("batch.dispatch", job=job):
+                fetch, out_devs = [], []
+                for k, (dv, (sig_d, nv_d, act_d)) in enumerate(zip(blocks,
+                                                                    staged)):
+                    rows = slice(k * Bl, (k + 1) * Bl)
+                    (payload, aux, out_dev, carries[rows], out_tail_b[k],
+                     w_tail_b[k]) = steps[str(dv)]["fn"](
+                        sig_d, nv_d, carries[rows], out_tail_b[k],
+                        w_tail_b[k], params[k], gains[k])
+                    timings["block_launches"][k] += 1
+                    if wire:
+                        words, used = payload
+                        fetch.append((dv, [aux, used],
+                                      _flatten_words(words, used, act_d)))
+                    else:
+                        fetch.append((dv, [payload, aux], None))
+                    out_devs.append(out_dev)
+                rb = _BlockReadback(fetch)
             timings["chunks"] += 1
             frame0s = [lane.frame0 for lane in lanes]
             for i, lane in enumerate(lanes):
                 lane.frame0 += int(nfs[i])
             pipe.push((frame0s, nfs, act, rb, out_devs), rb)
 
-            _t = time.perf_counter()
-            pipe.promote()
-            timings["block_s"] += time.perf_counter() - _t
-            _t = time.perf_counter()
-            if pipe.retire():
-                timings["consume_s"] += time.perf_counter() - _t
-        _t = time.perf_counter()
-        pipe.drain()
-        join_writers()
-        drain_s = time.perf_counter() - _t
-        timings["consume_s"] += drain_s
+            with trace.span("batch.promote", job=job):
+                pipe.promote()
+            if pipe.due():
+                with trace.span("batch.consume", job=job):
+                    pipe.retire()
+        with trace.span("batch.consume", job=job):
+            pipe.drain()
+            join_writers()
 
         # the stream tails of lanes whose last chunk was full, then every
         # lane's last flush cut, each on its own writer thread
-        _t = time.perf_counter()
-        out_tail_np = torch.cat([t.cpu() for t in out_tail_b]).numpy()
-        w_tail_np = torch.cat([t.cpu() for t in w_tail_b]).numpy()
-        for i, w in writers.items():
-            w.submit(lambda i=i: finish(i, out_tail_np[i], w_tail_np[i]))
-        join_writers()
-        timings["finish_s"] += time.perf_counter() - _t
+        with trace.span("batch.finish", job=job):
+            out_tail_np = torch.cat([t.cpu() for t in out_tail_b]).numpy()
+            w_tail_np = torch.cat([t.cpu() for t in w_tail_b]).numpy()
+            for i, w in writers.items():
+                w.submit(lambda i=i: finish(i, out_tail_np[i],
+                                            w_tail_np[i]))
+            join_writers()
         LAST_TIMINGS.clear()
-        LAST_TIMINGS.update({k: round(v, 4) if isinstance(v, float) else v
-                             for k, v in timings.items()})
-        LAST_TIMINGS["drain_s"] = round(drain_s, 4)
-        LAST_TIMINGS["devices"] = [str(dv) for dv in blocks]
-        LAST_TIMINGS["lane_write_s"] = [round(lane.write_s, 4)
-                                        for lane in lanes]
-        LAST_TIMINGS["transport"] = transport
+        LAST_TIMINGS.update(
+            chunks=timings["chunks"],
+            block_launches=timings["block_launches"],
+            devices=[str(dv) for dv in blocks], transport=transport,
+            job_id=job,
+            read_s=round(timings["read_s"], 4),
+            **{f"lane_{k}": [round(lane.timings[k], 4) for lane in lanes]
+               for k in ("decode_s", "write_s", "encode_s")})
         if wire:
             LAST_WIRE.update(wire_acct)
     finally:

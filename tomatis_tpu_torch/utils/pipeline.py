@@ -89,12 +89,16 @@ class StagedPipeline:
         for i, ck in enumerate(self.items[:-1]):
             self._advance(ck, min(2, m - i))
 
+    def due(self) -> bool:
+        """Whether retire() would finish a chunk now."""
+        return len(self.items) > self._depth
+
     def retire(self) -> bool:
         """Finish the oldest chunk once it has had `depth` iterations of
         slack (advancing it through any stage it has not reached —
         with depth < 3 a chunk can retire before promote() got it to
         S2). Returns whether a chunk was retired."""
-        if len(self.items) <= self._depth:
+        if not self.due():
             return False
         ck = self.items.pop(0)
         self._advance(ck, 3)
@@ -109,15 +113,16 @@ class StagedPipeline:
 
 
 class Prefetcher:
-    """Iterate `gen` on a daemon thread, buffering up to `depth` items."""
+    """Iterate `gen` on a daemon thread, buffering up to `depth` items.
+    name: the thread's (utils/trace.py's rows carry it)."""
 
     _DONE = object()
 
-    def __init__(self, gen, depth: int = 2):
+    def __init__(self, gen, depth: int = 2, name: str = "producer"):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, args=(gen,),
-                                        daemon=True)
+                                        name=name, daemon=True)
         self._thread.start()
 
     def _put(self, item) -> bool:
@@ -165,13 +170,15 @@ class OrderedWorker:
     """Run submitted zero-arg callables on one thread, strictly in order.
 
     After a job raises, later jobs are skipped and the exception is
-    re-raised on the caller's thread by check()/join().
+    re-raised on the caller's thread by check()/join(). name: the
+    thread's.
     """
 
-    def __init__(self, depth: int = 2):
+    def __init__(self, depth: int = 2, name: str = "writer"):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._errs: list = []
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
         self._thread.start()
 
     def _run(self):
