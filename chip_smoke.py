@@ -107,8 +107,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
     with TOMATIS_NO_RAMP=1 byte for byte, one batched launch per batch
     chunk and no single-file one; a corrupt lane fails alone; walls,
     aggregate realtime factor, LAST_TIMINGS, peak device memory, the
-    single-file walls' sum, and the lanes' codecs alone on one thread
-    each, side by side;
+    single-file walls' sum, and the lanes' codecs alone, a thread each
+    side by side (the encoder's helpers besides);
 19. doctor: `doctor` in this process on the card exits 0 (its kernel
     check holds one chunk_tail_cuda launch against chunk_tail_plain bit
     for bit; its engine run launches the chunk tail per chunk);
@@ -1258,9 +1258,10 @@ def files_equal(a: str, b: str) -> bool:
 def codecs_alone(audio, in_path: str, out_path: str, tmp: str,
                  block: int, int_read: bool) -> tuple:
     """This script's own timing of the two host codecs of a FLAC-to-FLAC
-    run, each alone on one thread: decoding the whole input in the
-    stream's blocks, and encoding the whole output from its PCM_24 bytes
-    in 5 s pieces. Returns (decode_s, encode_s)."""
+    run, each alone: decoding the whole input in the stream's blocks on
+    one thread, and encoding the whole output from its PCM_24 bytes in 5 s
+    pieces (each piece's blocks on the encoder's threads). Returns
+    (decode_s, encode_s)."""
     from tomatis_tpu_torch.utils.pcm import le24_from_i32
     t0 = time.perf_counter()
     with audio.AudioFile(in_path, "r") as f:
@@ -1370,7 +1371,7 @@ def wire_and_thread_paths(torch, cuda_ola, audio, standard, eq, x, ip, op,
     overlap_s = dec_s + enc_s + stream_alone_s - sp["wall_seconds"]
     log(f"threaded pipeline, long FLAC to FLAC on pcm24: wall "
         f"{sp['wall_seconds']:.3f} s; this thread's stage timers {t} (sum "
-        f"{stages:.3f} s); alone on one thread: decoding the input "
+        f"{stages:.3f} s); alone: decoding the input on one thread "
         f"{dec_s:.3f} s, encoding the output {enc_s:.3f} s, the array run's "
         f"stream stages {stream_alone_s:.3f} s; overlap = decode + encode + "
         f"stream - wall = {overlap_s:.3f}"
@@ -1398,7 +1399,7 @@ def wire_and_thread_paths(torch, cuda_ola, audio, standard, eq, x, ip, op,
     te = er["timings"]
     log(f"threaded pipeline, long apply_eq FLAC to FLAC (int24 input, "
         f"pcm24): {er['chunks']} chunks, wall {te['wall_s']:.3f} s, stages "
-        f"{te}; alone on one thread: decoding the input as ints "
+        f"{te}; alone: decoding the input as ints on one thread "
         f"{edec_s:.3f} s, encoding the output {eenc_s:.3f} s; hidden codec "
         f"time >= decode + encode - wall = "
         f"{edec_s + eenc_s - te['wall_s']:.3f} s; peak_seen "
@@ -1527,7 +1528,8 @@ def check_batched_tail(torch, cuda_ola):
 def lanes_codecs_alone(audio, ins, outs, tmp) -> tuple:
     """This script's own timing of the batch's host codecs alone, one
     thread per lane, all lanes side by side: decoding every input, and
-    encoding every output from its PCM_24 bytes in 5 s pieces. Returns
+    encoding every output from its PCM_24 bytes in 5 s pieces (with the
+    encoder's helper threads, one budget over the lanes). Returns
     (decode_s, encode_s), each the wall of all lanes together."""
     from tomatis_tpu_torch.utils.pcm import le24_from_i32
 
@@ -1564,6 +1566,7 @@ def lanes_codecs_alone(audio, ins, outs, tmp) -> tuple:
 def batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
     """Phase 18 (b): eight FLAC lanes through process_batch on the card,
     B = 8 and B = 4, each lane against its single-file run."""
+    from tomatis_tpu_torch.io.flac import encoder_threads
     from tomatis_tpu_torch.parallel import batch
     p = standard.StandardParams()
     seconds = [90, 150, 105, 135, 120, 97, 142, 113]
@@ -1656,9 +1659,11 @@ def batch_path(torch, cuda_ola, audio, standard, x, tmp) -> dict:
         f"{runs['batch_b4'][0]:.3f} s; the eight single-file walls "
         f"{[round(w, 3) for w in walls]} s, sum {sum(walls):.3f} s (first "
         f"four {sum(walls[:4]):.3f} s), longest {max(walls):.3f} s; alone, "
-        f"one thread per lane side by side: decoding the eight inputs "
+        f"one thread per lane side by side (the encoder's helpers "
+        f"besides): decoding the eight inputs "
         f"{dec_s:.3f} s, encoding the eight outputs {enc_s:.3f} s; "
-        f"{os.cpu_count()} host cores")
+        f"{os.cpu_count()} host cores, encoder helper threads "
+        f"{encoder_threads()}")
     return launches
 
 
@@ -2772,6 +2777,10 @@ def main() -> int:
     for src, text in BUILD_LOG.items():
         for ln in ptxas_lines(text):
             log(f"ptxas {src}: {ln}")
+    from tomatis_tpu_torch.io.flac import encoder_threads
+    log(f"host: {os.cpu_count()} cores, {len(os.sched_getaffinity(0))} in "
+        f"this process's affinity mask; FLAC encoder helper threads "
+        f"{encoder_threads()}")
 
     # -- 3. kernels vs plain -------------------------------------------------
     ola = check_ola(torch, cuda_ola)

@@ -186,3 +186,108 @@ def test_library_name_keys_flags_and_host(tmp_path, monkeypatch, change):
     monkeypatch.setattr(build.ctypes, "CDLL", lambda p: loaded.append(p))
     build.load_library("wire")
     assert compiled == [new] and loaded == [new]
+
+
+_CUTS = (1, 4095, 4097, 7000, 2 ** 17 + 13)     # then the rest
+
+
+def _pieces(n):
+    """Uneven flush cuts over n frames: _CUTS, then the rest."""
+    at = 0
+    for c in _CUTS + (n,):
+        yield at, min(n, at + c)
+        at = min(n, at + c)
+
+
+def _write_cut(path, x, subtype, how):
+    """x through a FlacWriter in uneven cuts, as floats or as PCM_24
+    bytes. Returns, per call, (blocks made, pooled delta, inline delta)."""
+    from tomatis_tpu_torch.utils.pcm import le24_from_i32
+    W = flac_mod.FlacWriter
+    ch = x.shape[1]
+    v = np.clip(np.rint(x * 8388608.0), -8388608, 8388607).astype(np.int32)
+    raw = le24_from_i32(v.reshape(-1))
+    calls, pend = [], 0
+    w = W(path, 48000, ch, subtype)
+    for a, b in _pieces(len(x)):
+        p0, i0 = W.pooled_blocks, W.inline_blocks
+        if how == "write":
+            w.write(x[a:b])
+        else:
+            w.write_raw(raw[a * ch * 3:b * ch * 3])
+        made, pend = divmod(pend + b - a, flac_mod.BLOCK)
+        calls.append((made, W.pooled_blocks - p0, W.inline_blocks - i0))
+    p0, i0 = W.pooled_blocks, W.inline_blocks
+    w.close()
+    calls.append((int(pend > 0), W.pooled_blocks - p0, W.inline_blocks - i0))
+    return calls
+
+
+@pytest.mark.parametrize("subtype,ch,how", [
+    ("PCM_24", 2, "write"), ("PCM_24", 2, "write_raw"),
+    ("PCM_24", 1, "write"), ("PCM_24", 1, "write_raw"),
+    ("PCM_16", 2, "write"), ("PCM_16", 1, "write")])
+def test_flush_cuts_pool_blocks_and_keep_the_bytes(tmp_path, subtype, ch,
+                                                   how):
+    """Uneven flush cuts through the pooled and inline paths give the file
+    of one write by the JAX package's one-thread encoder: frame numbers,
+    seek table and all. A call that completes two or more blocks makes
+    them on several threads; a shorter call, and the last partial block,
+    count as inline."""
+    x = _sig(n=300_011, ch=ch, seed=7 + ch)
+    a, b = tmp_path / "port.flac", tmp_path / "jax.flac"
+    calls = _write_cut(a, x, subtype, how)
+    jaudio.write(b, x, 48000, subtype=subtype)
+    assert a.read_bytes() == b.read_bytes()
+    pools = flac_mod.encoder_threads() > 0
+    for made, pooled, inline in calls:
+        if made >= 2 and pools:
+            assert (pooled, inline) == (made, 0)
+        else:
+            assert (pooled, inline) == (0, made)
+    assert [c[0] for c in calls] == [0, 1, 1, 1, 32, 38, 1]
+
+
+def test_concurrent_writers_stay_in_budget(tmp_path):
+    """Eight writers on eight threads at once, as the batch's lanes run:
+    each file equals its one-writer file, and the helper threads running
+    at once never exceed the process's budget."""
+    import sys
+    import threading
+    xs = [_sig(n=150_000 + 40_000 * k, ch=2, seed=20 + k) for k in range(8)]
+    hows = ["write", "write_raw"] * 4
+    for k, x in enumerate(xs):
+        _write_cut(tmp_path / f"one{k}.flac", x, "PCM_24", hows[k])
+    lib = flac_mod._lib()
+    lib.tflac_helpers_peak(1)
+    errors = []
+
+    def lane(k):
+        try:
+            _write_cut(tmp_path / f"lane{k}.flac", xs[k], "PCM_24", hows[k])
+        except Exception as e:     # reported below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=lane, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors
+    assert lib.tflac_helpers_peak(0) <= flac_mod.encoder_threads()
+    for k in range(8):
+        assert ((tmp_path / f"lane{k}.flac").read_bytes()
+                == (tmp_path / f"one{k}.flac").read_bytes())
+
+
+def test_write_raw_takes_whole_frames(tmp_path):
+    with flac_mod.FlacWriter(tmp_path / "r.flac", 48000, 2) as w:
+        w.write_raw(bytes(6 * 5000))
+        with pytest.raises(ValueError, match="whole frames"):
+            w.write_raw(bytes(9))

@@ -14,17 +14,26 @@
 // 1-12 selected by prediction-error bits estimate) per subframe, VERBATIM
 // fallback for incompressible blocks, mid/side channel assignment search,
 // partitioned Rice residuals (order 0..6 scored bottom-up), block size
-// 4096, correct CRC-8/CRC-16, MD5 left zero (= unknown, legal).
+// 4096, correct CRC-8/CRC-16, MD5 left zero (= unknown, legal). A frame's
+// bytes are a function of its samples and frame number alone, so a write
+// of two or more full blocks makes them on several threads (a budget for
+// the process, its usable CPUs) and writes them in order: the file's bytes
+// are those of the one-thread encoder.
 //
-// Build: g++ -O2 -shared -fPIC flac.cpp -o libtomatisflac.so
+// Build: g++ -O2 -shared -fPIC -pthread flac.cpp -o libtomatisflac.so
+
+#include <sched.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <string>
+#include <system_error>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -495,6 +504,63 @@ struct FlacDecoder {
     }
 };
 
+// ------------------------------------------------------- encoder threads
+// The encoders' helper threads come from one budget for the process: the
+// CPUs of its affinity mask, less one for the caller. A write takes helpers
+// only while the threads encoding pooled blocks, over every open encoder
+// and callers included, stay within those CPUs, so writers running side by
+// side never start more encoding threads than the host has CPUs; helpers
+// freed by one writer go to the next call of any other.
+int helper_budget() {
+    static const int budget = [] {
+        cpu_set_t set;
+        int cpus = 0;
+        if (sched_getaffinity(0, sizeof set, &set) == 0) cpus = CPU_COUNT(&set);
+        if (cpus < 1) cpus = (int)std::thread::hardware_concurrency();
+        return cpus > 1 ? cpus - 1 : 0;
+    }();
+    return budget;
+}
+
+std::atomic<int> g_encoding{0};     // callers and helpers of pooled writes
+std::atomic<int> g_helpers{0};      // helpers alone
+std::atomic<int> g_helpers_peak{0};
+
+// The helpers of one write, held from the grant to the end of its scope.
+// Helpers are counted into g_encoding before g_helpers and out of it after,
+// so g_helpers never exceeds helper_budget().
+struct HelperGrant {
+    int helpers = 0;
+    bool counted = false;
+
+    explicit HelperGrant(int want) {
+        if (want <= 0) return;
+        counted = true;
+        int cur = g_encoding.load();
+        do {
+            helpers = std::max(0, std::min(want, helper_budget() - cur));
+        } while (!g_encoding.compare_exchange_weak(cur, cur + 1 + helpers));
+        int now = g_helpers.fetch_add(helpers) + helpers;
+        int peak = g_helpers_peak.load();
+        while (now > peak && !g_helpers_peak.compare_exchange_weak(peak, now)) {
+        }
+    }
+
+    // give back the helpers granted but not started
+    void keep(size_t started) {
+        int back = helpers - (int)started;
+        g_helpers -= back;
+        g_encoding -= back;
+        helpers = (int)started;
+    }
+
+    ~HelperGrant() {
+        if (!counted) return;
+        g_helpers -= helpers;
+        g_encoding -= 1 + helpers;
+    }
+};
+
 // ---------------------------------------------------------------- encoder
 struct FlacEncoder {
     FILE* f = nullptr;
@@ -568,29 +634,98 @@ struct FlacEncoder {
         fwrite(h, 1, sizeof h, f);
     }
 
-    void write(const int32_t* x, long n) {
-        size_t stride = (size_t)BLOCK * channels;
-        size_t navail = (size_t)n * channels;
+    // One call's samples: interleaved int32, or 3-byte little-endian
+    // PCM_24 (b24) unpacked where they are encoded.
+    struct Source {
+        const int32_t* x;
+        const uint8_t* b24;
+        Source at(size_t i) const {
+            return {x ? x + i : nullptr, b24 ? b24 + 3 * i : nullptr};
+        }
+        const int32_t* samples(size_t n, std::vector<int32_t>& scratch) const {
+            if (x) return x;
+            scratch.resize(n);
+            unpack_le24(b24, n, scratch.data());
+            return scratch.data();
+        }
+    };
+
+    static void unpack_le24(const uint8_t* b, size_t n, int32_t* out) {
+        for (size_t i = 0; i < n; i++, b += 3)
+            out[i] = (int32_t)((uint32_t)b[0] << 8 | (uint32_t)b[1] << 16 |
+                               (uint32_t)b[2] << 24) >> 8;
+    }
+
+    void append_pend(Source src, size_t n) {
+        size_t at = pend.size();
+        pend.resize(at + n);
+        if (src.x) memcpy(pend.data() + at, src.x, n * sizeof(int32_t));
+        else unpack_le24(src.b24, n, pend.data() + at);
+    }
+
+    // Encode n frames of src. The full blocks' bytes depend only on their
+    // samples and frame numbers, so a call with two or more full blocks
+    // makes them on the calling thread and on helper threads, then writes
+    // them in block order; the seek points and the file position follow
+    // the sequential encoder's exactly. Returns the number of blocks made
+    // on more than one thread.
+    long write(Source src, long n) {
+        const size_t stride = (size_t)BLOCK * channels;
+        const size_t navail = (size_t)n * channels;
         size_t off = 0;
+        std::vector<Source> blocks;
         // top up a partial pending block first
         if (!pend.empty()) {
-            size_t need = stride - pend.size();
-            size_t take = navail < need ? navail : need;
-            pend.insert(pend.end(), x, x + take);
-            off += take;
-            if (pend.size() == stride) {
-                encode_frame(pend.data(), BLOCK);
-                pend.clear();
+            off = std::min(navail, stride - pend.size());
+            append_pend(src, off);
+            if (pend.size() == stride) blocks.push_back({pend.data(), nullptr});
+        }
+        for (; navail - off >= stride; off += stride)
+            blocks.push_back(src.at(off));
+        long pooled = 0;
+        if (!blocks.empty()) {
+            std::vector<std::vector<uint8_t>> frames(blocks.size());
+            pooled = make_frames(blocks, frames);
+            for (auto& b : frames) {
+                record_seekpoint(BLOCK);
+                fwrite(b.data(), 1, b.size(), f);
+                std::vector<uint8_t>().swap(b);
+                frame_no++;
                 total += BLOCK;
             }
         }
-        // encode full blocks straight from the caller's buffer
-        while (navail - off >= stride) {
-            encode_frame(x + off, BLOCK);
-            off += stride;
-            total += BLOCK;
+        if (pend.size() == stride) pend.clear();
+        append_pend(src.at(off), navail - off);
+        return pooled;
+    }
+
+    // frames[k] = the bytes of blocks[k], frame number frame_no + k. Two or
+    // more blocks are shared among the calling thread and the helpers the
+    // process-wide budget grants; returns the blocks made that way (0 when
+    // no helper was granted).
+    long make_frames(const std::vector<Source>& blocks,
+                     std::vector<std::vector<uint8_t>>& frames) const {
+        const long nb = (long)blocks.size();
+        const size_t stride = (size_t)BLOCK * channels;
+        std::atomic<long> next{0};
+        auto work = [&] {
+            std::vector<int32_t> scratch;
+            for (long k; (k = next.fetch_add(1)) < nb;)
+                frames[k] = frame_bytes(blocks[k].samples(stride, scratch),
+                                        BLOCK, frame_no + (uint32_t)k);
+        };
+        HelperGrant grant((int)std::min<long>(nb - 1, helper_budget()));
+        std::vector<std::thread> pool;
+        try {
+            for (int t = 0; t < grant.helpers; t++) pool.emplace_back(work);
+        } catch (const std::system_error&) {
+            // a thread the system refused: the others and the caller
+            // share the blocks
         }
-        pend.insert(pend.end(), x + off, x + navail);
+        grant.keep(pool.size());
+        work();
+        for (auto& th : pool) th.join();
+        return pool.empty() ? 0 : nb;
     }
 
     void close() {
@@ -620,12 +755,23 @@ struct FlacEncoder {
 
     void encode_frame(const int32_t* x, uint32_t bsize) {
         // `total` is still this frame's first sample (caller adds after)
+        record_seekpoint(bsize);
+        std::vector<uint8_t> b = frame_bytes(x, bsize, frame_no++);
+        fwrite(b.data(), 1, b.size(), f);
+    }
+
+    void record_seekpoint(uint32_t bsize) {
         if (total >= next_seek_sample && seekpts.size() < SEEK_POINTS) {
             seekpts.push_back({total,
                                (uint64_t)(ftell(f) - frames_start),
                                (uint16_t)bsize});
             while (next_seek_sample <= total) next_seek_sample += seek_spacing;
         }
+    }
+
+    // The bytes of one frame: a function of its samples and its number.
+    std::vector<uint8_t> frame_bytes(const int32_t* x, uint32_t bsize,
+                                     uint32_t fno_value) const {
         // stereo decorrelation search (ref decoder supports 8=L/S, 9=S/R,
         // 10=M/S): pick the assignment with the cheapest residual proxy
         uint32_t ch_asgn = channels - 1;  // independent
@@ -676,7 +822,7 @@ struct FlacEncoder {
         bw.bits(ss_bits, 3);
         bw.bits(0, 1);
         std::vector<uint8_t> fno;
-        utf8_encode(frame_no++, fno);
+        utf8_encode(fno_value, fno);
         for (uint8_t b : fno) bw.bits(b, 8);
         if (bs16) bw.bits(bsize - 1, 16);
         bw.align();
@@ -688,7 +834,7 @@ struct FlacEncoder {
         uint16_t c16 = crc16(bw.buf.data(), bw.buf.size());
         bw.bits(c16, 16);
         bw.align();  // drain the CRC bytes out of the accumulator
-        fwrite(bw.buf.data(), 1, bw.buf.size(), f);
+        return std::move(bw.buf);
     }
 
     // Levinson-Durbin LPC analysis (Welch-windowed autocorrelation).
@@ -807,7 +953,7 @@ struct FlacEncoder {
     }
 
     void encode_subframe(BitWriter& bw, const std::vector<int64_t>& ch,
-                         uint32_t cbps, uint32_t bsize) {
+                         uint32_t cbps, uint32_t bsize) const {
         // constant?
         bool constant = true;
         for (uint32_t i = 1; i < bsize; i++) if (ch[i] != ch[0]) { constant = false; break; }
@@ -886,7 +1032,7 @@ struct FlacEncoder {
     }
 
     void encode_residual(BitWriter& bw, const std::vector<int64_t>& res,
-                         int order, uint32_t bsize) {
+                         int order, uint32_t bsize) const {
         // choose the partition order scoring estimated bits, with the
         // per-partition |residual| sums built bottom-up: one pass over the
         // residual at the finest level, then pairwise merges per level
@@ -993,8 +1139,23 @@ void* tflac_open_write(const char* path, int sr, int ch, int bps) {
     return e;
 }
 
-void tflac_write(void* h, const int32_t* x, long n) {
-    ((FlacEncoder*)h)->write(x, n);
+// Append n interleaved int32 frames; returns the blocks made on more than
+// one thread.
+long tflac_write(void* h, const int32_t* x, long n) {
+    return ((FlacEncoder*)h)->write({x, nullptr}, n);
+}
+
+// The same from 3-byte little-endian PCM_24 samples (n frames).
+long tflac_write_le24(void* h, const uint8_t* b, long n) {
+    return ((FlacEncoder*)h)->write({nullptr, b}, n);
+}
+
+// The helper threads the encoders of this process may run at once.
+int tflac_encoder_threads() { return helper_budget(); }
+
+// The most helpers that ran at once since the last reset (for tests).
+int tflac_helpers_peak(int reset) {
+    return reset ? g_helpers_peak.exchange(0) : g_helpers_peak.load();
 }
 
 void tflac_close_write(void* h) {

@@ -1,5 +1,6 @@
-"""FLAC reader/writer over the native C++ codec (csrc/flac.cpp), a copy of
-tomatis_tpu/io/flac.py.
+"""FLAC reader/writer over the native C++ codec (csrc/flac.cpp), after
+tomatis_tpu/io/flac.py; the writer makes a call's full blocks on several
+threads and writes the same bytes.
 
 Same float32 surface as io.wav: samples are normalized to [-1, 1) on read
 and quantized with round-half-even + clip on write (PCM_16 / PCM_24
@@ -7,11 +8,14 @@ subtypes)."""
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 
 from tomatis_tpu_torch.native.build import load_library
-from tomatis_tpu_torch.utils.pcm import i32_from_le24
+
+BLOCK = 4096      # the encoder's block size (frames)
+
 
 def _scale(bits: int) -> float:
     """Full-scale divisor 2^(bits-1) — any legal FLAC depth (4-32),
@@ -43,10 +47,24 @@ def _lib():
     lib.tflac_open_write.restype = ctypes.c_void_p
     lib.tflac_open_write.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int]
+    lib.tflac_write.restype = ctypes.c_long
     lib.tflac_write.argtypes = [ctypes.c_void_p,
                                 ctypes.POINTER(ctypes.c_int32), ctypes.c_long]
+    lib.tflac_write_le24.restype = ctypes.c_long
+    lib.tflac_write_le24.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_long]
     lib.tflac_close_write.argtypes = [ctypes.c_void_p]
+    lib.tflac_encoder_threads.restype = ctypes.c_int
+    lib.tflac_encoder_threads.argtypes = []
+    lib.tflac_helpers_peak.restype = ctypes.c_int
+    lib.tflac_helpers_peak.argtypes = [ctypes.c_int]
     return lib
+
+
+def encoder_threads() -> int:
+    """The helper threads the encoder may run at once over every open
+    FlacWriter of the process: the CPUs of its affinity mask less one."""
+    return _lib().tflac_encoder_threads()
 
 
 def FlacReader(path):
@@ -133,6 +151,19 @@ class _NativeFlacReader:
 
 
 class FlacWriter:
+    """A FLAC file written in pieces. The encoder carries a partial block
+    across calls; a call that completes two or more blocks makes them on
+    the calling thread and on helper threads (encoder_threads()), and the
+    file's bytes are the one-thread encoder's.
+
+    pooled_blocks and inline_blocks count, over every writer of the
+    process, the blocks made on more than one thread and those made on the
+    calling thread alone (a short call, a budget taken by other writers,
+    the last partial block)."""
+    pooled_blocks = 0
+    inline_blocks = 0
+    _count_lock = threading.Lock()
+
     def __init__(self, path, samplerate: int, channels: int,
                  subtype: str = "PCM_24"):
         if subtype not in _SUBTYPE_BITS:
@@ -142,10 +173,23 @@ class FlacWriter:
         self.channels = channels
         self.subtype = subtype
         self.bits = _SUBTYPE_BITS[subtype]
+        self._pend = 0        # frames of the encoder's partial block
         self._h = self._lib.tflac_open_write(str(path).encode(),
                                              samplerate, channels, self.bits)
         if not self._h:
             raise ValueError(f"cannot open FLAC file for write: {path}")
+
+    def _count(self, n_frames: int, pooled: int):
+        """Count the blocks that n_frames more frames completed, pooled of
+        them made on more than one thread."""
+        made, self._pend = divmod(self._pend + n_frames, BLOCK)
+        self._count_blocks(made, pooled)
+
+    @classmethod
+    def _count_blocks(cls, made: int, pooled: int):
+        with cls._count_lock:
+            cls.pooled_blocks += pooled
+            cls.inline_blocks += made - pooled
 
     def write(self, data: np.ndarray):
         data = np.asarray(data, np.float32)
@@ -156,23 +200,32 @@ class FlacWriter:
         s = _scale(self.bits)
         v = np.clip(np.rint(data * s), -s, s - 1).astype(np.int32)
         flat = np.ascontiguousarray(v.reshape(-1))
-        self._lib.tflac_write(
+        pooled = self._lib.tflac_write(
             self._h, flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             len(data))
+        self._count(len(data), pooled)
 
     def write_raw(self, raw):
-        """Device-packed little-endian PCM_24 bytes -> int32 -> encoder."""
+        """Device-packed little-endian PCM_24 bytes (bytes-like or a uint8
+        array), unpacked inside the encoder: no copy here."""
         if self.bits != 24:
             raise ValueError("write_raw requires PCM_24")
-        v = i32_from_le24(np.frombuffer(bytes(raw), np.uint8))
-        self._lib.tflac_write(
-            self._h, v.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            len(v) // self.channels)
+        b = raw if isinstance(raw, np.ndarray) else np.frombuffer(raw, np.uint8)
+        b = np.ascontiguousarray(b, np.uint8).reshape(-1)
+        n, rest = divmod(len(b), 3 * self.channels)
+        if rest:
+            raise ValueError(f"{len(b)} PCM_24 bytes are not whole frames of "
+                             f"{self.channels} channels")
+        pooled = self._lib.tflac_write_le24(self._h, b.ctypes.data, n)
+        self._count(n, pooled)
 
     def close(self):
         if self._h:
             self._lib.tflac_close_write(self._h)
             self._h = None
+            if self._pend:       # the last, partial block, made on close
+                self._pend = 0
+                self._count_blocks(1, 0)
 
     def __enter__(self):
         return self

@@ -31,7 +31,8 @@ CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-CXX_FLAGS = ["-std=c++17", "-O3", "-funroll-loops", "-shared", "-fPIC"]
+CXX_FLAGS = ["-std=c++17", "-O3", "-funroll-loops", "-shared", "-fPIC",
+             "-pthread"]
 
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict = {}     # one per library: two sources build in parallel
@@ -71,7 +72,7 @@ def _cxx_commands(src: str, tmp: str) -> list:
             "*encode* has no pure path — write .wav instead (the "
             "processors fall back to .wav on their own).") from None
     return [[nvcc, "-x", "c++", "-std=c++17", "-O3", "-shared", "-Xcompiler",
-             "-fPIC", src, "-o", tmp]]
+             "-fPIC,-pthread", src, "-o", tmp]]
 
 
 def _commands(src: str, out: str) -> list:
