@@ -1,12 +1,13 @@
-"""Entry driver: the in-memory API, `process_array(x, sr, params)` of the
-configuration's processor at its default transport ("f32"), on arrays
-made in set-up. Nothing is written to disk. The outputs of a few jobs
-drawn from the seed, and of the last, are kept for the check."""
+"""Entry driver: the in-memory API, the function the configuration names
+under "array_entry" (a processor's `process_array`), called as
+entry(x, sr, params, frames_per_chunk=..., device=...) at its default
+transport ("f32"), on arrays made in set-up. Nothing is written to disk.
+The outputs of a few jobs drawn from the seed, and of the last, are kept
+for the check."""
 from __future__ import annotations
 
-import importlib
-
 from harness.check import Answer
+from harness import spec
 from harness.driving import Context, Job, program_params, sample_indices
 from harness.driving import timed_job
 
@@ -17,9 +18,7 @@ class ArrayProcess:
     def __init__(self, ctx: Context):
         self.ctx = ctx
         self.params = program_params(ctx.cell.config)
-        mod = importlib.import_module(
-            f"tomatis_tpu_torch.models.{ctx.cell.config['processor']}")
-        self.entry = mod.process_array
+        self.entry = spec.program_object(ctx.cell.config, "array_entry")
         self.keep = sample_indices(ctx.seed, KEEP_AMONG, KEEP_DRAWS)
         self.last = None
 

@@ -1,24 +1,25 @@
-"""Entry driver: a folder of files as one batch,
-`tomatis_tpu_torch.process_batch(jobs, params, state_csv_paths=...)` on
-one device, one lane per input, the transport as the program's
-batch_transport picks it. A job is one batch of every input; it fails if
-any lane fails. The job's stats are the lanes' stats and the program's
-parallel.batch.LAST_TIMINGS of that call."""
+"""Entry driver: a folder of files as one batch, through the function the
+configuration names under "batch_entry" (tomatis_tpu_torch:process_batch),
+called as entry(jobs, params, frames_per_chunk=..., state_csv_paths=...,
+device=...) on one device, one lane per input, the transport as the
+program's batch_transport picks it. A job is one batch of every input; it
+fails if any lane fails. The job's stats are the lanes' stats and the
+program's parallel.batch.LAST_TIMINGS of that call."""
 from __future__ import annotations
 
 import os
 
+from harness import spec
 from harness.driving import (Context, Job, file_answers, program_params,
                              timed_job)
 
 
 class BatchProcess:
     def __init__(self, ctx: Context):
-        import tomatis_tpu_torch
         from tomatis_tpu_torch.parallel import batch
         self.ctx = ctx
         self.params = program_params(ctx.cell.config)
-        self.entry = tomatis_tpu_torch.process_batch
+        self.entry = spec.program_object(ctx.cell.config, "batch_entry")
         self.timings = batch.LAST_TIMINGS
         self.lanes = len(ctx.inputs)
 

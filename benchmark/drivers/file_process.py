@@ -1,13 +1,15 @@
-"""Entry driver: file to file through the processor's `process`
-(tomatis_tpu_torch.process for the standard processor,
-tomatis_tpu_torch.models.xfade.process for the crossfade one), FLAC in,
-FLAC PCM_24 and the state CSV out, transport "auto". Job k takes input k
-mod the number of inputs, so a mix of several tracks is processed in
-turn."""
+"""Entry driver: file to file through the function the configuration
+names under "entry" (tomatis_tpu_torch:process for the standard
+processor, tomatis_tpu_torch.models.xfade:process for the crossfade one),
+called as entry(in_path, out_path, params, state_csv_path=...,
+frames_per_chunk=..., progress=..., device=...): FLAC in, FLAC PCM_24 and
+the state CSV out, transport "auto". Job k takes input k mod the number
+of inputs, so a mix of several tracks is processed in turn."""
 from __future__ import annotations
 
 import os
 
+from harness import spec
 from harness.driving import (Context, Job, file_answers, program_params,
                              timed_job)
 
@@ -16,12 +18,7 @@ class FileProcess:
     def __init__(self, ctx: Context):
         self.ctx = ctx
         self.params = program_params(ctx.cell.config)
-        if ctx.cell.config["processor"] == "standard":
-            import tomatis_tpu_torch
-            self.entry = tomatis_tpu_torch.process
-        else:
-            from tomatis_tpu_torch.models import xfade
-            self.entry = xfade.process
+        self.entry = spec.program_object(ctx.cell.config, "entry")
         self.progress = ctx.spans.wrap("progress", lambda done, total: None)
 
     def _run(self, in_path: str, tag: str):

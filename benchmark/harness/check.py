@@ -1,6 +1,7 @@
 """The check that decides `correct`: what the timed path produced, held
-to the plain reference (benchmark/reference/tomatis_ref.py) run on the
-same input samples.
+to the plain reference that the configuration names under "reference"
+(benchmark/reference/<module>.py, its contract in reference/__init__.py)
+run on the same input samples.
 
 The numbers compared, each against its cell's limit (workloads/<cell>.json
 "limits"):
@@ -15,7 +16,8 @@ The numbers compared, each against its cell's limit (workloads/<cell>.json
                 the file is a whole number of hops), and the 0.999 peak
                 clamp of that cut scales all of it by what it finds there
   state_frames  state-CSV rows whose C1/C2 state is not the reference
-                gate's, plus rows missing or extra
+                gate's; a CSV whose frame_idx column is not the
+                reference's csv_frame_idx reads every row missing
   level_db      the largest gap between a row's level and the
                 reference's, dB
   alpha_frames  crossfade state-CSV rows whose alpha, as the CSV prints
@@ -32,7 +34,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from reference import tomatis_ref
+from harness import spec
+from reference import precision
 
 FULL_SCALE = 8388608.0
 
@@ -90,8 +93,7 @@ def _audio_gaps(a: Answer, ref: dict, n_fft: int) -> dict:
 def _csv_gaps(a: Answer, ref: dict, config: dict) -> dict:
     rows = ref["rows"]
     c = a.csv
-    if len(c["frame_idx"]) != len(rows) \
-            or not np.array_equal(c["frame_idx"], rows):
+    if not np.array_equal(c["frame_idx"], ref["csv_frame_idx"]):
         out = {"state_frames": float(max(len(rows), len(c["frame_idx"]))),
                "level_db": math.inf}
         if ref["alpha"] is not None:
@@ -113,16 +115,18 @@ def _csv_gaps(a: Answer, ref: dict, config: dict) -> dict:
 
 
 def compare(answers: list, inputs, config: dict,
-            quantise=tomatis_ref.identity, each: list | None = None) -> dict:
-    """{number: worst reading over the answers}. The reference runs once
-    per distinct input. `each`, when given, gets (answer name, its
-    numbers, the count of masked frames) for every answer."""
+            quantise=precision.identity, each: list | None = None) -> dict:
+    """{number: worst reading over the answers}. The configuration's
+    reference runs once per distinct input. `each`, when given, gets
+    (answer name, its numbers, the count of masked frames) for every
+    answer."""
+    reference = spec.reference(config)
     worst: dict = {}
     by_input: dict = {}
     for a in answers:
         by_input.setdefault(a.input, []).append(a)
     for i, group in sorted(by_input.items()):
-        ref = tomatis_ref.render(inputs.reference_input(i), config, quantise)
+        ref = reference.render(inputs.reference_input(i), config, quantise)
         for a in group:
             nums = _audio_gaps(a, ref, config["params"]["n_fft"])
             if a.csv is not None:

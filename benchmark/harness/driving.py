@@ -62,14 +62,9 @@ def timed_job(k: int, spans: Spans, name: str, fn) -> Job:
 
 
 def program_params(config: dict):
-    """The processor's params dataclass, as the configuration states."""
-    if config["processor"] == "standard":
-        from tomatis_tpu_torch.models.standard import StandardParams
-        return StandardParams(**config["params"])
-    if config["processor"] == "xfade":
-        from tomatis_tpu_torch.models.xfade import XfadeParams
-        return XfadeParams(**config["params"])
-    raise ValueError(f"no driver for processor {config['processor']!r}")
+    """The processor's params: the configuration's "params" in the class
+    it names under "params_class"."""
+    return spec.program_object(config, "params_class")(**config["params"])
 
 
 EMPTY_CSV = {"frame_idx": np.zeros(0, np.int64), "level": np.zeros(0),

@@ -1,9 +1,14 @@
 """What a cell is made of, found by name: BENCHMARK.json at the root of
 the checkout, benchmark/workloads/<cell>.json, configs/<config>.json,
 traffic/<mix>.json, and the Python files of a traffic generator
-(traffic/<generator>.py), an entry driver (drivers/<driver>.py) and a
-metric's reader (metrics/<metric>.py). A new cell, configuration, mix,
-generator, driver or metric is a new file; nothing here changes."""
+(traffic/<generator>.py), an entry driver (drivers/<driver>.py), a
+metric's reader (metrics/<metric>.py) and the configuration's plain
+reference (reference/<module>.py). The configuration also names the
+program's entry points and params class as "package.module:attribute",
+found with importlib. A new cell, configuration, processor, mix,
+generator, driver or metric is a new file; nothing here changes. A name
+that leads nowhere raises Missing, which names the file, module or
+attribute that is not there."""
 from __future__ import annotations
 
 import importlib.util
@@ -17,6 +22,10 @@ BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH)
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}\Z")
 UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}\Z")
+
+
+class Missing(LookupError):
+    """A cell's files name a file, module or attribute that is not there."""
 
 
 def check_name(name: str, what: str) -> str:
@@ -39,11 +48,36 @@ def load_module(kind: str, name: str):
         return sys.modules[mod_name]
     spec = importlib.util.spec_from_file_location(mod_name, path)
     if spec is None or not os.path.exists(path):
-        raise FileNotFoundError(path)
+        raise Missing(f"no {kind} module {name!r}: {path} does not exist")
     mod = importlib.util.module_from_spec(spec)
     sys.modules[mod_name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def named(config: dict, key: str) -> str:
+    """What the configuration names under `key`."""
+    if key not in config:
+        raise Missing(f"configuration {config.get('name')!r} names no {key}")
+    return config[key]
+
+
+def program_object(config: dict, key: str):
+    """The program's object that the configuration names under `key`, as
+    "package.module:attribute"."""
+    ref = named(config, key)
+    mod_name, _, attr = str(ref).partition(":")
+    if not mod_name or not attr:
+        raise Missing(f"{key} {ref!r} is not package.module:attribute")
+    try:
+        return getattr(importlib.import_module(mod_name), attr)
+    except (ImportError, AttributeError) as e:
+        raise Missing(f"{key} {ref!r}: {e}") from e
+
+
+def reference(config: dict):
+    """The configuration's plain reference, reference/<module>.py."""
+    return load_module("reference", named(config, "reference"))
 
 
 @dataclass
@@ -71,6 +105,7 @@ def load_cell(name: str, bench: dict | None = None) -> Cell:
     wl = load_json(BENCH, "workloads", f"{name}.json")
     cfg = load_json(BENCH, "configs",
                     f"{check_name(wl['config'], 'config')}.json")
+    reference(cfg)                  # a missing reference ends the run now
     mix = load_json(BENCH, "traffic",
                     f"{check_name(wl['traffic'], 'traffic')}.json")
     e2e = [m for m in bench["end_to_end"] if reports(m, name, set())]

@@ -20,10 +20,8 @@ gate once more with each such decision taken the other way and marks the
 frames whose C1/C2 weight that changes (`masked`); the check does not
 hold the program to the reference there.
 
-`quantise` puts a rounding after each stage: the identity for the
-reference, a round trip through bfloat16 for the lower-precision control,
-float32 (with the FFTs computed in float32) for a witness of what float32
-arithmetic gives, as the program's does.
+render() keeps to the contract of benchmark/reference/__init__.py; its
+`quantise` is one of reference.precision's roundings.
 """
 from __future__ import annotations
 
@@ -31,6 +29,8 @@ import math
 
 import numpy as np
 import torch
+
+from reference.precision import identity
 
 EPS = 1e-12
 PEAK_LIMIT = 0.999
@@ -40,28 +40,6 @@ BLOCK_FRAMES = 2048
 # a hundred times the largest level gap of the program's sound runs
 # (8.7e-6 dB), a hundred times under the bfloat16 control's (0.12 dB)
 AMBIGUOUS_DB = 1e-3
-
-
-def identity(t: torch.Tensor) -> torch.Tensor:
-    return t
-
-
-def bfloat16(t: torch.Tensor) -> torch.Tensor:
-    """Round to bfloat16 and back (real and imaginary parts apart)."""
-    if t.is_complex():
-        return torch.complex(bfloat16(t.real), bfloat16(t.imag))
-    return t.to(torch.bfloat16).to(t.dtype)
-
-
-def float32(t: torch.Tensor) -> torch.Tensor:
-    """Round to float32 and back; render() also runs its FFTs in float32
-    under this quantiser (fft32)."""
-    if t.is_complex():
-        return torch.complex(float32(t.real), float32(t.imag))
-    return t.to(torch.float32).to(t.dtype)
-
-
-float32.fft32 = True
 
 
 def threshold_dbfs(params: dict) -> float:
@@ -140,9 +118,10 @@ def render(x: np.ndarray, config: dict, quantise=identity) -> dict:
     Returns y (float64 [n, C], the output before quantisation), pcm
     (int32 [n, C], its PCM_24 values), levels, states, masked and, for
     the crossfade processor, alpha (one per frame); rows: the indices of
-    the frames whose start lies in the file (the state CSV's rows);
-    starts: each frame's first sample in the file (from -n_fft/2);
-    last_cut: the first sample of the file's last flush cut."""
+    the frames whose start lies in the file (the state CSV's rows), which
+    the CSV numbers as they are (csv_frame_idx); starts: each frame's
+    first sample in the file (from -n_fft/2); last_cut: the first sample
+    of the file's last flush cut."""
     p = config["params"]
     sr = config["sample_rate"]
     n_fft, hop = p["n_fft"], p["hop"]
@@ -238,5 +217,5 @@ def render(x: np.ndarray, config: dict, quantise=identity) -> dict:
     starts = -pad + np.arange(n_frames) * hop
     rows = np.nonzero((starts >= 0) & (starts < total))[0]
     return dict(y=y_out.numpy(), pcm=pcm.numpy(), levels=levels.numpy(),
-                states=states, alpha=alpha, rows=rows, masked=masked,
-                starts=starts, last_cut=max(0, cuts[-1][0]))
+                states=states, alpha=alpha, rows=rows, csv_frame_idx=rows,
+                masked=masked, starts=starts, last_cut=max(0, cuts[-1][0]))

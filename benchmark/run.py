@@ -5,17 +5,21 @@
 
 from the root of a checkout. The cell (benchmark/workloads/<cell>.json)
 names its configuration, traffic mix, entry driver and limits; the
-metrics it reports are BENCHMARK.json's. A run makes its inputs from the
-seed, warms the cell's shapes with one short job, then runs whole jobs back
-to back for at least --seconds (the window ends with the first job that
-finishes at or after it), then holds the outputs to the plain reference.
+configuration names the program's entry points, params class and plain
+reference; the metrics it reports are BENCHMARK.json's. A run makes its
+inputs from the seed, warms the cell's shapes with one short job, then runs
+whole jobs back to back for at least --seconds (the window ends with the
+first job that finishes at or after it), then holds the outputs to the
+plain reference.
 With --trace 0 the last line of standard output carries the cell's
 end-to-end metrics, with --trace 1 its per-layer ones, from a
 torch.profiler trace of the window. The numbers compared, each beside its
 limit, are the last lines of standard error and the result's last key.
 
 Exit codes: 0 a result was printed; 2 no CUDA card, or fewer than the cell
-asks for; 3 a JAX module was loaded; 1 anything else (no result).
+asks for; 3 a JAX module was loaded; 1 anything else (no result), among
+it a file, module or attribute that the cell's files name and that is
+not there (the message names it).
 
 --rehearse drives the cell on the CPU at a twentieth of its lengths and
 64 frames a chunk (so that every file, a batch's lanes too, spans several
@@ -104,6 +108,15 @@ def main(argv=None) -> int:
         sys.path.insert(1, ROOT)
     if BENCH not in sys.path:
         sys.path.insert(0, BENCH)
+    from harness import spec
+    try:
+        return run(args)
+    except spec.Missing as e:
+        log(f"no result: {e}")
+        return 1
+
+
+def run(args) -> int:
     from harness import spec
     cell = spec.load_cell(args.workload)
     import torch

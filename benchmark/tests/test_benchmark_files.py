@@ -2,13 +2,16 @@
 generator, driver and metric loads; names and units keep to their
 characters; each metric's reader agrees with its row; every `moves` names
 an end-to-end metric its cells report; every cell has a limit for each
-number its outputs carry."""
+number its outputs carry; every configuration's entry points, params
+class and reference are there."""
 import json
 import os
 
+import numpy as np
 import pytest
 
 from harness import spec
+from harness.driving import program_params
 
 BENCH = spec.BENCH
 ROOT = spec.ROOT
@@ -42,6 +45,13 @@ def test_names_units_and_lines():
         assert 1 <= len(text) <= 200 and not LINE & set(text), text
 
 
+def _renders_alpha(config: dict) -> bool:
+    """Whether the configuration's reference returns a crossfade weight,
+    which its state CSV then prints."""
+    x = np.zeros((4 * config["params"]["n_fft"], config["channels"]))
+    return spec.reference(config).render(x, config)["alpha"] is not None
+
+
 @pytest.mark.parametrize("cfg", B["configs"], ids=lambda c: c["name"])
 def test_config_files(cfg):
     assert set(cfg) == {"name", "source", "file", "reduced", "why"}
@@ -51,9 +61,17 @@ def test_config_files(cfg):
     assert d["reduced"] == cfg["reduced"] == []
     assert len(d["source"]) <= 200
     assert d["channels"] == 2 and d["sample_rate"] == 48000
-    # the resolved threshold is the processor's own
-    from reference.tomatis_ref import threshold_dbfs
-    assert threshold_dbfs(d["params"]) == d["threshold_dbfs"]
+    # the program's entry points and params class, and the reference,
+    # that the configuration names are there
+    for key in ("entry", "array_entry", "batch_entry"):
+        if key in d:
+            assert callable(spec.program_object(d, key)), key
+    program_params(d)
+    ref = spec.reference(d)
+    assert callable(ref.render)
+    # the resolved threshold is the processor's own, where it has one
+    if hasattr(ref, "threshold_dbfs"):
+        assert ref.threshold_dbfs(d["params"]) == d["threshold_dbfs"]
 
 
 @pytest.mark.parametrize("cell", B["workloads"], ids=lambda c: c["name"])
@@ -73,7 +91,7 @@ def test_workload_files(cell):
     want = {"audio_lsb", "end_lsb"}
     if c.mix["format"] == "flac":
         want |= {"state_frames", "level_db"}
-        if c.config["processor"] == "xfade":
+        if "csv_alpha_format" in c.config or _renders_alpha(c.config):
             want.add("alpha_frames")
     assert set(w["limits"]) == want
     # setup_s, another end-to-end metric and a per-layer one

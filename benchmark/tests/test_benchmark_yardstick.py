@@ -12,7 +12,7 @@ import pytest
 
 from harness import check, control, spec
 from harness.inputs import Inputs, to_pcm24
-from reference import tomatis_ref
+from reference import precision, tomatis_ref
 
 HAS_GXX = shutil.which("g++") is not None
 needs_gxx = pytest.mark.skipif(not HAS_GXX, reason="the frozen FLAC codec "
@@ -67,14 +67,13 @@ def test_frozen_codec_round_trip_and_threads(tmp_path):
 
 
 def _port_run(cfg, x, transport):
+    """The port's in-memory entry that the configuration names."""
     import torch
     torch.set_num_threads(2)
     from harness.driving import program_params
-    from tomatis_tpu_torch.models import standard, xfade
-    mod = standard if cfg["processor"] == "standard" else xfade
-    y, _ = mod.process_array(x, cfg["sample_rate"], program_params(cfg),
-                             frames_per_chunk=256, device="cpu",
-                             transport=transport)
+    y, _ = spec.program_object(cfg, "array_entry")(
+        x, cfg["sample_rate"], program_params(cfg), frames_per_chunk=256,
+        device="cpu", transport=transport)
     return y
 
 
@@ -89,11 +88,12 @@ def test_reference_agrees_with_the_port_and_the_control_does_not(
     if transport == "pcm24":
         x = (to_pcm24(x) / 8388608.0).astype(np.float32)
     y = _port_run(cell.config, x, transport)
-    ref = tomatis_ref.render(x, cell.config)
+    reference = spec.reference(cell.config)
+    ref = reference.render(x, cell.config)
     gap = np.abs(y.astype(np.float64) - ref["y"]).max() * 8388608.0
     assert gap <= 4.0, gap
     assert (ref["states"] == 2).any() and (ref["states"] == 1).any()
-    ctl = tomatis_ref.render(x, cell.config, tomatis_ref.bfloat16)
+    ctl = reference.render(x, cell.config, precision.bfloat16)
     assert np.abs(ctl["y"] - ref["y"]).max() * 8388608.0 > 100 * gap
 
 
@@ -112,14 +112,15 @@ def test_file_end_reads_as_float32_reads_it(cell_name):
         mix, cell.config, 1)[0]
     x = (to_pcm24(x) / 8388608.0).astype(np.float32)
     assert len(x) == 200 * hop
-    ref = tomatis_ref.render(x, cell.config)
+    reference = spec.reference(cell.config)
+    ref = reference.render(x, cell.config)
     n_fft = cell.config["params"]["n_fft"]
 
     def gaps(pcm):
         return check._audio_gaps(check.Answer("a", 0, pcm=pcm), ref, n_fft)
     port = gaps(to_pcm24(_port_run(cell.config, x, "pcm24")))
-    f32 = gaps(tomatis_ref.render(x, cell.config, tomatis_ref.float32)["pcm"])
-    ctl = gaps(tomatis_ref.render(x, cell.config, tomatis_ref.bfloat16)["pcm"])
+    f32 = gaps(reference.render(x, cell.config, precision.float32)["pcm"])
+    ctl = gaps(reference.render(x, cell.config, precision.bfloat16)["pcm"])
     assert port["audio_lsb"] <= 4 and f32["audio_lsb"] <= 4, (port, f32)
     assert port["end_lsb"] <= 4 * f32["end_lsb"] + 16, (port, f32)
     assert ctl["end_lsb"] > 30 * max(port["end_lsb"], 16), (ctl, port)
@@ -140,7 +141,8 @@ def test_gate_decisions_within_rounding_are_masked():
     n = len(levels)
     masked = a != b
     starts = -hop + np.arange(n) * hop
-    ref = {"rows": np.arange(1, n), "states": a, "masked": masked,
+    ref = {"rows": np.arange(1, n), "csv_frame_idx": np.arange(1, n),
+           "states": a, "masked": masked,
            "levels": np.array(levels), "alpha": None, "starts": starts,
            "pcm": np.zeros(((n - 1) * hop, 2), np.int32), "last_cut": 0}
     ref["last_cut"] = len(ref["pcm"])
@@ -180,7 +182,7 @@ def test_control_comes_out_not_correct(cell_name, tmp_path):
     # and the reference in the program's place is correct
     ok, _ = check.judge(
         check.compare(control.answers(inputs, cell.config,
-                                      tomatis_ref.identity), inputs,
+                                      precision.identity), inputs,
                       cell.config), cell.workload["limits"])
     assert ok
 
