@@ -1,9 +1,10 @@
 """The names the benchmark reads from the port, pinned on short CPU runs:
 every stage timer a reader in benchmark/metrics/ names (each "<key>_s"
 string in its source) is in the stats of the runs of its kind, a FLAC
-`process`, a crossfade `process`, a B = 2 `process_batch` and a
-`process_array`; every launch counter of benchmark/harness/counters.py is
-on ops/cuda_ola.py; and the timers keep their identities. The benchmark's
+`process`, a crossfade `process`, a B = 2 `process_batch`, a
+`process_array` and an adaptive `process`; every launch counter of
+benchmark/harness/counters.py is on ops/cuda_ola.py; and the timers keep
+their identities. The benchmark's
 own tests are not in the Tier-1 command, so a renamed timer would pass
 it without this file."""
 import importlib.util
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from tomatis_tpu_torch.io import audio
-from tomatis_tpu_torch.models import standard, xfade
+from tomatis_tpu_torch.models import adaptive, standard, xfade
 from tomatis_tpu_torch.models.standard import StandardParams, process
 from tomatis_tpu_torch.parallel import batch
 from tomatis_tpu_torch.utils import trace
@@ -73,7 +74,11 @@ def runs(tmp_path_factory):
     lt = dict(batch.LAST_TIMINGS)
     _, arr = standard.process_array(_sig(3.0), SR, frames_per_chunk=FPC,
                                     transport="pcm24", device="cpu")
-    return dict(process=st, xfade=xf, batch=lt, array=arr, rows=rows)
+    ad = adaptive.process(ip, d / "a.flac", adaptive.AdaptiveParams(),
+                          state_csv_path=d / "a.csv", frames_per_chunk=FPC,
+                          device="cpu")
+    return dict(process=st, xfade=xf, batch=lt, array=arr, rows=rows,
+                adaptive=ad)
 
 
 def test_every_timer_a_reader_names_is_there(runs):
@@ -83,12 +88,15 @@ def test_every_timer_a_reader_names_is_there(runs):
             "job_setup_ms", "array_collect_pct", "batch_read_pct",
             "batch_write_pct", "writer_encode_pct", "writer_busy_pct",
             "producer_decode_pct", "producer_wait_pct", "batch_encode_pct",
-            "batch_decode_pct"} <= set(keys)
+            "batch_decode_pct", "adaptive_decode_pct", "adaptive_probe_ms",
+            "adaptive_pass3_pct", "adaptive_finalize_pct"} <= set(keys)
     for metric, names in keys.items():
         if metric.startswith("batch_"):
             kinds = ("batch",)
         elif metric.startswith("array_"):
             kinds = ("array",)
+        elif metric.startswith("adaptive_"):
+            kinds = ("adaptive",)
         else:
             kinds = ("process", "xfade")
         for kind in kinds:
@@ -127,3 +135,16 @@ def test_the_timers_keep_their_identities(runs):
     for k in ("chunks", "block_launches", "devices", "transport"):
         assert k in lt
     assert runs["array"]["timings"]["output_decode_s"] >= 0
+
+
+def test_the_adaptive_timers_keep_their_identities(runs):
+    """The adaptive processor's probe count is there for adaptive_probe_ms,
+    its reads lie inside the three passes, and a chunk's step and staging
+    write inside pass 3."""
+    st = runs["adaptive"]
+    t = st["timings"]
+    assert st["search_probes"] >= 1 and t["threshold_search_s"] > 0
+    assert 0 < t["decode_s"] <= t["peak_scan_s"] + t["levels_s"] \
+        + t["pass3_s"]
+    assert 0 < t["step_s"] + t["stage_write_s"] <= t["pass3_s"]
+    assert 0 < t["encode_s"] <= t["restore_protect_s"]
