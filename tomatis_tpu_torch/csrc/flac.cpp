@@ -9,7 +9,10 @@
 // (methods 0/4-bit and 1/5-bit incl. escapes); wasted bits; stereo
 // decorrelation L/S, R/S, M/S; 4-24-bit samples (32-bit streams need a
 // 33-bit side channel and are declined at open — the pure-Python
-// fallback decoder handles them exactly).
+// fallback decoder handles them exactly). It reads its bits a 64-bit word
+// at a time: a Rice quotient is a count of leading zeros, an LPC restore
+// is specialised by order, and in an AVX2 build a stereo frame's two LPC
+// restores run side by side.
 // Encoder: FIXED predictors (orders 0-4) and LPC (Levinson-Durbin, orders
 // 1-12 selected by prediction-error bits estimate) per subframe, VERBATIM
 // fallback for incompressible blocks, mid/side channel assignment search,
@@ -36,6 +39,10 @@
 #include <thread>
 #include <vector>
 
+#if defined(__AVX2__)
+#include <immintrin.h>
+#endif
+
 namespace {
 
 // ---------------------------------------------------------------- CRC
@@ -57,29 +64,37 @@ uint16_t crc16(const uint8_t* d, size_t n) {
 }
 
 // ---------------------------------------------------------------- bit reader
+// MSB first, a 64-bit word at a time: a read loads the eight bytes from the
+// byte that holds `pos` (unaligned, big-endian) and shifts out pos & 7, so
+// one load holds at least 57 valid bits. The stream is followed by PAD zero
+// bytes, so every load that the readers below make while `pos` is within
+// `limit` stays in bounds and finds zeros past it. A read that would pass
+// `limit` sets `error` and leaves `pos` where it was.
+constexpr size_t PAD = 16;
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+              "load_be64 swaps a little-endian load");
+
+inline uint64_t load_be64(const uint8_t* p) {
+    uint64_t w;
+    memcpy(&w, p, 8);
+    return __builtin_bswap64(w);
+}
+
+inline uint64_t load_bits(const uint8_t* data, size_t pos) {
+    return load_be64(data + (pos >> 3)) << (pos & 7);
+}
+
 struct BitReader {
     const uint8_t* data = nullptr;
-    size_t size = 0;     // bytes
+    size_t limit = 0;    // the stream's end (bits)
     size_t pos = 0;      // bit position
     bool error = false;
 
-    bool byte_aligned() const { return (pos & 7) == 0; }
-    size_t byte_pos() const { return pos >> 3; }
-
     uint32_t bits(int n) {  // n <= 32
-        uint32_t v = 0;
-        for (int i = 0; i < n; i++) {
-            size_t byte = pos >> 3;
-            if (byte >= size) { error = true; return 0; }
-            v = (v << 1) | ((data[byte] >> (7 - (pos & 7))) & 1);
-            pos++;
-        }
-        return v;
-    }
-    uint64_t bits64(int n) {
-        uint64_t v = 0;
-        if (n > 32) { v = bits(n - 32); return (v << 32) | bits(32); }
-        return bits(n);
+        if (pos + n > limit) { error = true; return 0; }
+        uint64_t w = load_bits(data, pos);
+        pos += n;
+        return (uint32_t)((w >> 1) >> (63 - n));  // 0 at n == 0
     }
     int32_t sbits(int n) {  // n <= 32 (the `~0u << n` is UB at n >= 32)
         uint32_t v = bits(n);
@@ -88,9 +103,20 @@ struct BitReader {
         if (v & (1u << (n - 1))) return (int32_t)(v | (~0u << n));
         return (int32_t)v;
     }
-    uint32_t unary() {
+    uint32_t unary() {  // the zeros before the next 1, which it consumes
         uint32_t q = 0;
-        while (!error && bits(1) == 0) q++;
+        while (pos < limit) {
+            uint64_t w = load_bits(data, pos);
+            if (w) {  // the 1 lies before limit: the pad is zeros
+                int z = __builtin_clzll(w);
+                pos += z + 1;
+                return q + z;
+            }
+            q += 57;
+            pos += 57;
+        }
+        error = true;
+        pos = limit;
         return q;
     }
     void align() { pos = (pos + 7) & ~(size_t)7; }
@@ -171,9 +197,186 @@ bool utf8_decode(BitReader& br, uint64_t* out) {
 }
 
 // ---------------------------------------------------------------- decoder
+// The LPC restore with the predictor's order fixed at compile time, so the
+// inner sum unrolls; int64 sums, and the two's-complement wrap of malformed
+// residuals is well-defined (valid files never wrap).
+template <uint32_t ORDER>
+void restore_lpc_n(const int32_t* coef, int shift, uint32_t n, int32_t* x) {
+    int64_t c[ORDER];
+    for (uint32_t j = 0; j < ORDER; j++) c[j] = coef[j];
+    for (uint32_t i = ORDER; i < n; i++) {
+        // the newest sample last: the products of the older ones need not
+        // wait for it
+        int64_t p = 0;
+        for (uint32_t j = ORDER - 1; j > 0; j--) p += c[j] * x[i - 1 - j];
+        p += c[0] * x[i - 1];
+        x[i] = (int32_t)((uint32_t)x[i] + (uint32_t)(p >> shift));
+    }
+}
+
+void restore_lpc(uint32_t order, const int32_t* coef, int shift, uint32_t n,
+                 int32_t* x) {
+    switch (order) {  // the orders 1-12 that encoders emit
+        case 1: return restore_lpc_n<1>(coef, shift, n, x);
+        case 2: return restore_lpc_n<2>(coef, shift, n, x);
+        case 3: return restore_lpc_n<3>(coef, shift, n, x);
+        case 4: return restore_lpc_n<4>(coef, shift, n, x);
+        case 5: return restore_lpc_n<5>(coef, shift, n, x);
+        case 6: return restore_lpc_n<6>(coef, shift, n, x);
+        case 7: return restore_lpc_n<7>(coef, shift, n, x);
+        case 8: return restore_lpc_n<8>(coef, shift, n, x);
+        case 9: return restore_lpc_n<9>(coef, shift, n, x);
+        case 10: return restore_lpc_n<10>(coef, shift, n, x);
+        case 11: return restore_lpc_n<11>(coef, shift, n, x);
+        case 12: return restore_lpc_n<12>(coef, shift, n, x);
+    }
+    for (uint32_t i = order; i < n; i++) {
+        int64_t p = 0;
+        for (uint32_t j = 0; j < order; j++)
+            p += (int64_t)coef[j] * x[i - 1 - j];
+        x[i] = (int32_t)((uint32_t)x[i] + (uint32_t)(p >> shift));
+    }
+}
+
+// An LPC subframe's predictor, from its header to its restore.
+struct Lpc {
+    uint32_t order = 0;  // 0: not an LPC subframe
+    int shift = 0;
+    int32_t coef[32];
+};
+
+#if defined(__AVX2__)
+// The LPC restores of a frame's two channels side by side, one per 64-bit
+// lane, both at order ORDER: a product is a pmuldq (signed 32 x 32 -> 64
+// bits), the sums int64, the arithmetic shift a logical one of the sum
+// offset by 2^63, and a sample the low 32 bits of its lane, so that each
+// lane computes what restore_lpc_n computes.
+template <uint32_t ORDER>
+void restore_lpc2_n(const int32_t* ca, const int32_t* cb, int sa, int sb,
+                    uint32_t n, int32_t* xa, int32_t* xb) {
+    __m128i c[ORDER], h[ORDER];  // h[j]: the samples i - 1 - j
+    for (uint32_t j = 0; j < ORDER; j++) {
+        c[j] = _mm_set_epi64x(cb[j], ca[j]);
+        h[j] = _mm_set_epi64x(xb[ORDER - 1 - j], xa[ORDER - 1 - j]);
+    }
+    const __m128i bias = _mm_set1_epi64x(INT64_MIN);
+    const __m128i shift = _mm_set_epi64x(sb, sa);
+    const __m128i unbias = _mm_set_epi64x((int64_t)(1ull << (63 - sb)),
+                                          (int64_t)(1ull << (63 - sa)));
+    for (uint32_t i = ORDER; i < n; i++) {
+        __m128i p = _mm_setzero_si128();
+        for (uint32_t j = ORDER - 1; j > 0; j--)
+            p = _mm_add_epi64(p, _mm_mul_epi32(c[j], h[j]));
+        p = _mm_add_epi64(p, _mm_mul_epi32(c[0], h[0]));
+        __m128i q = _mm_sub_epi64(
+            _mm_srlv_epi64(_mm_xor_si128(p, bias), shift), unbias);
+        __m128i v = _mm_add_epi64(q, _mm_set_epi64x(xb[i], xa[i]));
+        xa[i] = _mm_cvtsi128_si32(v);
+        xb[i] = _mm_extract_epi32(v, 2);
+        for (uint32_t j = ORDER - 1; j > 0; j--) h[j] = h[j - 1];
+        h[0] = v;
+    }
+}
+#endif
+
+// The LPC restores of a frame's two channels. Where the build targets AVX2
+// (native/build.py's -march=native on such a CPU) and both orders are 12
+// or under, they run side by side at the higher order, the lower one's
+// taps past its order zero, once its own samples up to that order are
+// restored.
+void restore_lpc_pair(const Lpc& a, const Lpc& b, uint32_t n, int32_t* xa,
+                      int32_t* xb) {
+#if defined(__AVX2__)
+    uint32_t order = std::max(a.order, b.order);
+    if (order <= 12) {
+        int32_t ca[12] = {0}, cb[12] = {0};
+        std::copy(a.coef, a.coef + a.order, ca);
+        std::copy(b.coef, b.coef + b.order, cb);
+        restore_lpc(a.order, a.coef, a.shift, order, xa);
+        restore_lpc(b.order, b.coef, b.shift, order, xb);
+        switch (order) {
+            case 1: return restore_lpc2_n<1>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 2: return restore_lpc2_n<2>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 3: return restore_lpc2_n<3>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 4: return restore_lpc2_n<4>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 5: return restore_lpc2_n<5>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 6: return restore_lpc2_n<6>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 7: return restore_lpc2_n<7>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 8: return restore_lpc2_n<8>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 9: return restore_lpc2_n<9>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 10: return restore_lpc2_n<10>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 11: return restore_lpc2_n<11>(ca, cb, a.shift, b.shift, n, xa, xb);
+            case 12: return restore_lpc2_n<12>(ca, cb, a.shift, b.shift, n, xa, xb);
+        }
+    }
+#endif
+    restore_lpc(a.order, a.coef, a.shift, n, xa);
+    restore_lpc(b.order, b.coef, b.shift, n, xb);
+}
+
+void restore_fixed(uint32_t order, uint32_t n, int32_t* x) {
+    // unsigned arithmetic: malformed residuals may overflow, and the
+    // two's-complement wrap is well-defined (valid files never wrap)
+    auto u = [&](uint32_t i) { return (uint32_t)x[i]; };
+    switch (order) {
+        case 0: break;
+        case 1: for (uint32_t i = 1; i < n; i++) x[i] = (int32_t)(u(i) + u(i-1)); break;
+        case 2: for (uint32_t i = 2; i < n; i++) x[i] = (int32_t)(u(i) + 2u*u(i-1) - u(i-2)); break;
+        case 3: for (uint32_t i = 3; i < n; i++) x[i] = (int32_t)(u(i) + 3u*u(i-1) - 3u*u(i-2) + u(i-3)); break;
+        case 4: for (uint32_t i = 4; i < n; i++) x[i] = (int32_t)(u(i) + 4u*u(i-1) - 6u*u(i-2) + 4u*u(i-3) - u(i-4)); break;
+    }
+}
+
+// One Rice partition of cnt residuals with parameter k into out. The bits
+// from br.pos on are held left-aligned in `buf`, the first `have` of them
+// valid, and the bits after them start at byte `next`; each residual first
+// tops `buf` up to 56 valid bits or more from a load at `next`, whose address
+// is known a residual ahead, then takes its quotient with a count of leading
+// zeros. A residual longer than the valid bits goes through br.
+bool rice_partition(BitReader& br, uint32_t k, uint32_t cnt, int32_t* out) {
+    const uint8_t* data = br.data;
+    const size_t limit = br.limit;
+    const uint8_t* next = data + (br.pos >> 3) + 7;
+    uint32_t have = 56 - (uint32_t)(br.pos & 7);
+    uint64_t buf = load_bits(data, br.pos);
+    for (uint32_t i = 0; i < cnt; i++) {
+        // bits of buf past `have` are zero or already the stream's, so
+        // the OR leaves them as the stream has them
+        buf |= load_be64(next) >> have;
+        next += (63 - have) >> 3;
+        have |= 56;
+        uint32_t q, r;
+        uint32_t q1 = buf ? (uint32_t)__builtin_clzll(buf) + 1 : 64;
+        if (q1 + k <= have) {  // the 1 lies before limit: the pad is zeros
+            q = q1 - 1;
+            uint64_t w = buf << q1;
+            r = (uint32_t)((w >> 1) >> (63 - k));  // 0 at k == 0
+            buf = w << k;
+            have -= q1 + k;
+        } else {
+            br.pos = (size_t)(next - data) * 8 - have;
+            q = br.unary();
+            r = br.bits((int)k);
+            if (br.error) return false;
+            next = data + (br.pos >> 3) + 7;
+            have = 56 - (uint32_t)(br.pos & 7);
+            buf = load_bits(data, br.pos);
+        }
+        if ((size_t)(next - data) * 8 - have > limit) {  // the remainder ran out
+            br.error = true;
+            return false;
+        }
+        uint32_t zz = (q << k) | r;
+        out[i] = (int32_t)((zz >> 1) ^ (~(zz & 1) + 1));
+    }
+    br.pos = (size_t)(next - data) * 8 - have;
+    return true;
+}
+
 struct FlacDecoder {
     FILE* f = nullptr;
-    std::vector<uint8_t> stream;   // whole file after metadata (frames)
+    std::vector<uint8_t> stream;   // the whole file, then PAD zero bytes
+    size_t nbytes = 0;             // the file's size
     size_t frames_off = 0;         // offset of first frame in `stream`
     // STREAMINFO
     uint32_t sample_rate = 0;
@@ -183,6 +386,10 @@ struct FlacDecoder {
     uint32_t max_block = 0;
     struct SeekEntry { uint64_t sample, offset; };
     std::vector<SeekEntry> seektable;
+
+    // the channels of the frame decode_frame decoded last, frame_len each
+    std::vector<int32_t> chan[8];
+    uint32_t frame_len = 0;
 
     // decode cursor
     size_t byte_pos = 0;           // into stream
@@ -250,6 +457,8 @@ struct FlacDecoder {
         // sample path is int32, so decline and let the caller fall back
         // to the pure-Python decoder (io/flac_py.py), which is exact
         if (bps > 24 || bps < 4) return false;
+        nbytes = stream.size();
+        stream.resize(nbytes + PAD, 0);
         frames_off = off;
         byte_pos = off;
         if (total_samples == 0) {
@@ -257,10 +466,8 @@ struct FlacDecoder {
             // (unknown length); every consumer here needs the length up
             // front (flush plans, output sizing), so count by decoding
             // one full pass, then rewind
-            std::vector<int32_t> tmp;
             uint64_t start, counted = 0;
-            while (decode_frame(tmp, &start))
-                counted += tmp.size() / (channels ? channels : 1);
+            while (decode_frame(&start)) counted += frame_len;
             total_samples = counted;
             byte_pos = frames_off;
             next_sample = 0;
@@ -270,10 +477,10 @@ struct FlacDecoder {
         return true;
     }
 
-    // decode one frame at byte_pos into interleaved samples
-    bool decode_frame(std::vector<int32_t>& out, uint64_t* frame_start) {
-        if (byte_pos + 5 >= stream.size()) return false;
-        BitReader br{stream.data(), stream.size(), byte_pos * 8};
+    // decode one frame at byte_pos into chan[0..channels), frame_len each
+    bool decode_frame(uint64_t* frame_start) {
+        if (byte_pos + 5 >= nbytes) return false;
+        BitReader br{stream.data(), nbytes * 8, byte_pos * 8};
         uint32_t sync = br.bits(14);
         if (br.error || sync != 0x3FFE) return false;
         br.bits(1);                      // reserved
@@ -324,46 +531,80 @@ struct FlacDecoder {
         else return false;
         if (nch != channels) return false;
 
-        std::vector<std::vector<int32_t>> chans(nch);
+        Lpc lpc[8];
+        uint32_t wasted[8];
         for (uint32_t c = 0; c < nch; c++) {
             uint32_t cbps = fbps + (side == (int)c ? 1 : 0);
-            if (!decode_subframe(br, bsize, cbps, chans[c])) return false;
+            if (chan[c].size() < bsize) chan[c].resize(bsize);
+            if (!decode_subframe(br, bsize, cbps, chan[c].data(), lpc[c],
+                                 wasted[c]))
+                return false;
         }
         br.align();
         br.bits(16);  // frame CRC-16 (trusted)
         if (br.error) return false;
 
+        // the LPC restores, then the wasted bits
+        if (nch == 2 && lpc[0].order && lpc[1].order) {
+            restore_lpc_pair(lpc[0], lpc[1], bsize, chan[0].data(),
+                             chan[1].data());
+        } else {
+            for (uint32_t c = 0; c < nch; c++)
+                if (lpc[c].order)
+                    restore_lpc(lpc[c].order, lpc[c].coef, lpc[c].shift,
+                                bsize, chan[c].data());
+        }
+        for (uint32_t c = 0; c < nch; c++) {
+            int32_t* x = chan[c].data();
+            if (wasted[c])
+                for (uint32_t i = 0; i < bsize; i++)
+                    x[i] = (int32_t)((uint32_t)x[i] << wasted[c]);
+        }
+
         // stereo decorrelation
+        int32_t* a = chan[0].data();
+        int32_t* b = nch > 1 ? chan[1].data() : nullptr;
         if (ch_asgn == 8) {        // left/side: R = L - S
-            for (uint32_t i = 0; i < bsize; i++) chans[1][i] = chans[0][i] - chans[1][i];
+            for (uint32_t i = 0; i < bsize; i++) b[i] = a[i] - b[i];
         } else if (ch_asgn == 9) { // side/right: L = S + R
-            for (uint32_t i = 0; i < bsize; i++) chans[0][i] = chans[0][i] + chans[1][i];
+            for (uint32_t i = 0; i < bsize; i++) a[i] = a[i] + b[i];
         } else if (ch_asgn == 10) {// mid/side
             for (uint32_t i = 0; i < bsize; i++) {
-                int64_t mid = chans[0][i];
-                int64_t s = chans[1][i];
+                int64_t mid = a[i];
+                int64_t s = b[i];
                 mid = (int64_t)(((uint64_t)mid << 1) | ((uint64_t)s & 1));
-                chans[0][i] = (int32_t)((mid + s) >> 1);
-                chans[1][i] = (int32_t)((mid - s) >> 1);
+                a[i] = (int32_t)((mid + s) >> 1);
+                b[i] = (int32_t)((mid - s) >> 1);
             }
         }
 
-        out.resize((size_t)bsize * nch);
-        for (uint32_t i = 0; i < bsize; i++)
-            for (uint32_t c = 0; c < nch; c++)
-                out[(size_t)i * nch + c] = chans[c][i];
-
+        frame_len = bsize;
         *frame_start = blocking ? num : num * max_block;
         byte_pos = (br.pos + 7) / 8;
         return true;
     }
 
+    // the frame decode_frame decoded last, interleaved into dst
+    void interleave(int32_t* dst) const {
+        for (uint32_t i = 0; i < frame_len; i++)
+            for (uint32_t c = 0; c < channels; c++)
+                dst[(size_t)i * channels + c] = chan[c][i];
+    }
+
+    // the frame decode_frame decoded last, whole in pend from sample `skip`
+    void pend_frame(uint64_t skip) {
+        pend.resize((size_t)frame_len * channels);
+        interleave(pend.data());
+        pend_off = (size_t)skip * channels;
+    }
+
+    // One subframe into out, all but an LPC subframe's restore (which
+    // decode_frame makes from `lpc`) and the `wasted` bits' shift.
     bool decode_subframe(BitReader& br, uint32_t bsize, uint32_t cbps,
-                         std::vector<int32_t>& out) {
-        out.assign(bsize, 0);
+                         int32_t* out, Lpc& lpc, uint32_t& wasted) {
         if (br.bits(1) != 0) return false;  // padding
         uint32_t type = br.bits(6);
-        uint32_t wasted = 0;
+        wasted = 0;
         if (br.bits(1)) wasted = br.unary() + 1;
         if (wasted >= cbps || wasted >= 32) return false;  // ebps underflow / UB shift
         uint32_t ebps = cbps - wasted;
@@ -385,40 +626,18 @@ struct FlacDecoder {
             for (uint32_t i = 0; i < order; i++) out[i] = br.sbits((int)ebps);
             uint32_t prec = br.bits(4) + 1;
             if (prec == 16) return false;  // 1111 invalid
-            int shift = (int)br.bits(5);
-            std::vector<int32_t> coef(order);
-            for (uint32_t i = 0; i < order; i++) coef[i] = br.sbits((int)prec);
+            lpc.shift = (int)br.bits(5);
+            for (uint32_t i = 0; i < order; i++) lpc.coef[i] = br.sbits((int)prec);
             if (!decode_residual(br, bsize, order, out)) return false;
-            for (uint32_t i = order; i < bsize; i++) {
-                int64_t p = 0;
-                for (uint32_t j = 0; j < order; j++)
-                    p += (int64_t)coef[j] * out[i - 1 - j];
-                out[i] = (int32_t)((uint32_t)out[i]
-                                   + (uint32_t)(p >> shift));
-            }
+            lpc.order = order;
         } else {
             return false;
         }
-        if (wasted)
-            for (uint32_t i = 0; i < bsize; i++) out[i] = (int32_t)((uint32_t)out[i] << wasted);
         return !br.error;
     }
 
-    static void restore_fixed(uint32_t order, uint32_t n, std::vector<int32_t>& x) {
-        // unsigned arithmetic: malformed residuals may overflow, and the
-        // two's-complement wrap is well-defined (valid files never wrap)
-        auto u = [&](uint32_t i) { return (uint32_t)x[i]; };
-        switch (order) {
-            case 0: break;
-            case 1: for (uint32_t i = 1; i < n; i++) x[i] = (int32_t)(u(i) + u(i-1)); break;
-            case 2: for (uint32_t i = 2; i < n; i++) x[i] = (int32_t)(u(i) + 2u*u(i-1) - u(i-2)); break;
-            case 3: for (uint32_t i = 3; i < n; i++) x[i] = (int32_t)(u(i) + 3u*u(i-1) - 3u*u(i-2) + u(i-3)); break;
-            case 4: for (uint32_t i = 4; i < n; i++) x[i] = (int32_t)(u(i) + 4u*u(i-1) - 6u*u(i-2) + 4u*u(i-3) - u(i-4)); break;
-        }
-    }
-
     bool decode_residual(BitReader& br, uint32_t bsize, uint32_t order,
-                         std::vector<int32_t>& out) {
+                         int32_t* out) {
         uint32_t method = br.bits(2);
         if (method > 1) return false;
         int pbits = method == 0 ? 4 : 5;
@@ -431,23 +650,21 @@ struct FlacDecoder {
             uint32_t cnt = bsize >> po;
             if (p == 0) cnt -= order;
             uint32_t k = br.bits(pbits);
+            if (br.error) return false;
             if (k == esc) {
                 uint32_t raw = br.bits(5);
-                for (uint32_t i = 0; i < cnt; i++) out[idx++] = raw ? br.sbits((int)raw) : 0;
-            } else {
-                for (uint32_t i = 0; i < cnt; i++) {
-                    uint32_t q = br.unary();
-                    uint32_t r = k ? br.bits((int)k) : 0;
-                    uint32_t zz = (q << k) | r;
-                    out[idx++] = (int32_t)((zz >> 1) ^ (~(zz & 1) + 1));
-                }
+                for (uint32_t i = 0; i < cnt; i++) out[idx + i] = raw ? br.sbits((int)raw) : 0;
+                if (br.error) return false;
+            } else if (!rice_partition(br, k, cnt, out + idx)) {
+                return false;
             }
-            if (br.error) return false;
+            idx += cnt;
         }
         return idx == bsize;
     }
 
-    // sequential read of n interleaved sample frames into dst
+    // sequential read of n interleaved sample frames into dst; a frame
+    // that fits whole goes straight there, the rest of one through pend
     long read(int32_t* dst, long want) {
         long got = 0;
         while (got < want) {
@@ -460,12 +677,15 @@ struct FlacDecoder {
                 got += (long)(take / channels);
                 continue;
             }
-            std::vector<int32_t> frame;
             uint64_t start;
-            if (!decode_frame(frame, &start)) return got;
-            next_sample = start + frame.size() / channels;
-            pend = std::move(frame);
-            pend_off = 0;
+            if (!decode_frame(&start)) return got;
+            next_sample = start + frame_len;
+            if ((uint64_t)(want - got) >= frame_len) {
+                interleave(dst + (size_t)got * channels);
+                got += frame_len;
+            } else {
+                pend_frame(0);
+            }
         }
         return got;
     }
@@ -480,26 +700,22 @@ struct FlacDecoder {
         next_sample = 0;
         for (size_t i = seektable.size(); i-- > 0;) {
             if (seektable[i].sample <= sample
-                && frames_off + seektable[i].offset < stream.size()) {
+                && frames_off + seektable[i].offset < nbytes) {
                 byte_pos = frames_off + (size_t)seektable[i].offset;
                 next_sample = seektable[i].sample;
                 break;
             }
         }
         while (true) {
-            std::vector<int32_t> frame;
             uint64_t start;
-            size_t save = byte_pos;
-            if (!decode_frame(frame, &start)) return sample == next_sample;
-            uint64_t end = start + frame.size() / channels;
+            if (!decode_frame(&start)) return sample == next_sample;
+            uint64_t end = start + frame_len;
             if (sample < end) {
-                pend = std::move(frame);
-                pend_off = (size_t)(sample - start) * channels;
+                pend_frame(sample - start);
                 next_sample = end;
                 return true;
             }
             next_sample = end;
-            (void)save;
         }
     }
 };
