@@ -82,17 +82,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
     decode_pcm24 equals the pcm24 bytes. CUDA-event ms of pack and
     unpack beside their byte bounds, the stream's bytes per sample, the
     C++ encode and decode ms per chunk;
-15. wire paths: `process --transport wire` through the CLI on the 60 s
-    WAV and process(transport="wire") on a 10-minute FLAC, each against
-    the pcm24 run of the same file: output bytes and state CSV equal,
-    one chunk-tail launch per chunk, wire_stats printed, the 10-minute
-    file staged by the worker process;
-16. the threaded pipeline, measured: the 10-minute FLAC to FLAC on pcm24
-    (the default) with its stage timers and wall beside this script's
-    own timing of decoding the whole input and of encoding the whole
-    output alone and the array run's stream stages; the same for
-    apply_eq on that FLAC; peak device memory with three chunks in
-    flight;
+15. the long file: the M-minute programme as a FLAC through process()
+    to FLAC on pcm24 (the default): one chunk-tail launch per chunk, its
+    stages, wall and peak device memory;
+16. the threaded pipeline, measured: phase 15's stage timers and wall
+    beside this script's own timing of decoding the whole input and of
+    encoding the whole output alone and the array run's stream stages;
+    the same for apply_eq on that FLAC; peak device memory with three
+    chunks in flight;
 17. convert: FLAC -> WAV -> FLAC through the int24 copy keeps every
     sample;
 18. process-batch: (a) the batched chunk tail (a lane axis, one launch
@@ -1282,33 +1279,15 @@ def codecs_alone(audio, in_path: str, out_path: str, tmp: str,
     return decode_s, encode_s
 
 
-def wire_and_thread_paths(torch, cuda_ola, audio, standard, eq, x, ip, op,
-                          cp, stream_alone_s, tmp) -> dict:
-    """Phases 15 to 17. x: the long programme; ip/op/cp: the 60 s WAV, its
-    pcm24 output and state CSV (phase 5); stream_alone_s: the stage timers'
-    sum of the warm array run of x (phase 4: no file codec in it)."""
-    from tomatis_tpu_torch.cli import main as cli_main
-    from tomatis_tpu_torch.engine import staging
+def thread_paths(torch, cuda_ola, audio, standard, eq, x, stream_alone_s,
+                 tmp) -> dict:
+    """Phases 15 to 17. x: the long programme; stream_alone_s: the stage
+    timers' sum of the warm array run of x (phase 4: no file codec in
+    it)."""
     p = standard.StandardParams()
     launches = {}
 
-    # -- 15. wire paths ------------------------------------------------------
-    wop, wcp = os.path.join(tmp, "wire.wav"), os.path.join(tmp, "wire.csv")
-    reset_counts(cuda_ola)
-    rc = cli_main.main(["process", "-i", ip, "-o", wop, "--state_csv", wcp,
-                        "--transport", "wire", "--device", "cuda"])
-    chunks60 = len(chunk_schedule(standard, p, audio.info(ip).frames))
-    launches["wire_wav"] = read_counts(cuda_ola, chunks60, "wire WAV path",
-                                       ("eps", "pcm24", 2))
-    if rc != 0:
-        fail(f"`process --transport wire` exited {rc}")
-    if not files_equal(wop, op) or not files_equal(wcp, cp):
-        fail("wire WAV path: output or state CSV differs from the pcm24 "
-             "run's")
-    log(f"wire WAV path (CLI, 60 s WAV to WAV): output and state CSV equal "
-        f"the pcm24 run's byte for byte, {launches['wire_wav']['chunk_tail']}"
-        f" chunk-tail launches over {chunks60} chunks")
-
+    # -- 15. the long file ---------------------------------------------------
     # the long programme as a FLAC, a frame of silence at both ends (the
     # EQ render's edges, see the appliers' phase)
     xl = x.copy()
@@ -1320,51 +1299,22 @@ def wire_and_thread_paths(torch, cuda_ola, audio, standard, eq, x, ip, op,
     log(f"long FLAC: {len(xl) / SR:.0f} s written in "
         f"{time.perf_counter() - t0:.3f} s, {os.path.getsize(lip)} bytes")
     del xl
-    runs = {}
-    for tr in ("pcm24", "wire", "pcm24", "wire"):   # in turns, the last kept
-        o = os.path.join(tmp, f"long_{tr}.flac")
-        c = os.path.join(tmp, f"long_{tr}.csv")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(cuda_ola)
-        st = standard.process(lip, o, p, state_csv_path=c, device="cuda",
-                              transport=tr)
-        launches[f"long_{tr}"] = read_counts(
-            cuda_ola, st["chunks"], f"10-minute {tr} path",
-            ("eps", "pcm24", 2))
-        st["peak_mem"] = torch.cuda.max_memory_allocated()
-        runs.setdefault(tr, []).append(st)
-        log(f"long FLAC to FLAC, {tr}: {st['chunks']} chunks, producer "
-            f"{st['producer']}, wall {st['wall_seconds']:.3f} s, realtime "
-            f"factor {st['realtime_factor']:.2f}x, stages {st['timings']}, "
-            f"wire {st['wire']}, peak device memory "
-            f"{st['peak_mem'] / 1e9:.3f} GB")
-    sw, sp = runs["wire"][-1], runs["pcm24"][-1]
-    if sw["chunks"] <= 8:
-        fail(f"the long file has {sw['chunks']} chunks: too short for the "
-             f"staging process")
-    if sw["producer"] != "process" or sp["producer"] != "thread":
-        fail(f"producers: wire {sw['producer']} (expected the staging "
-             f"process), pcm24 {sp['producer']} (expected the thread)")
-    if not staging._WORKER or not staging._WORKER[0].alive():
-        fail("the staging worker process is not alive after its run")
-    if not (sw["wire"]["in_bytes"] > 0 and sw["wire"]["out_bytes"] > 0
-            and sw["wire"]["in_raw_chunks"] == 0):
-        fail(f"wire stats of the long run: {sw['wire']}")
-    for ext in ("flac", "csv"):
-        if not files_equal(os.path.join(tmp, f"long_wire.{ext}"),
-                           os.path.join(tmp, f"long_pcm24.{ext}")):
-            fail(f"long wire path: the .{ext} differs from the pcm24 run's")
-    n_s = sw["total"] * 2
-    log(f"wire against pcm24, long FLAC to FLAC: bytes and state CSV equal; "
-        f"walls wire {[round(r['wall_seconds'], 3) for r in runs['wire']]} s,"
-        f" pcm24 {[round(r['wall_seconds'], 3) for r in runs['pcm24']]} s; "
-        f"link bytes per sample: in {sw['wire']['in_bytes'] / n_s:.3f} "
-        f"(against 4 of float32), out {sw['wire']['out_bytes'] / n_s:.3f} "
-        f"(against 3 of pcm24)")
+    lop = os.path.join(tmp, "long_pcm24.flac")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(cuda_ola)
+    sp = standard.process(lip, lop, p,
+                          state_csv_path=os.path.join(tmp, "long_pcm24.csv"),
+                          device="cuda", transport="pcm24")
+    launches["long_pcm24"] = read_counts(
+        cuda_ola, sp["chunks"], "10-minute pcm24 path", ("eps", "pcm24", 2))
+    sp["peak_mem"] = torch.cuda.max_memory_allocated()
+    log(f"long FLAC to FLAC, pcm24: {sp['chunks']} chunks, wall "
+        f"{sp['wall_seconds']:.3f} s, realtime factor "
+        f"{sp['realtime_factor']:.2f}x, stages {sp['timings']}, peak device "
+        f"memory {sp['peak_mem'] / 1e9:.3f} GB")
 
     # -- 16. the threaded pipeline, measured ---------------------------------
-    lop = os.path.join(tmp, "long_pcm24.flac")
     dec_s, enc_s = codecs_alone(audio, lip, lop, tmp, 1024 * 2048, False)
     t = sp["timings"]
     stages = sum(t.values())
@@ -1409,7 +1359,7 @@ def wire_and_thread_paths(torch, cuda_ola, audio, standard, eq, x, ip, op,
     # -- 17. convert ---------------------------------------------------------
     from tomatis_tpu_torch.cli import convert as cli_convert
     cw, cf = os.path.join(tmp, "conv.wav"), os.path.join(tmp, "conv.flac")
-    src = os.path.join(tmp, "long_wire.flac")
+    src = lop
     t0 = time.perf_counter()
     if cli_convert.main(["-i", src, "-o", cw]) != 0 \
             or cli_convert.main(["-i", cw, "-o", cf]) != 0:
@@ -1422,7 +1372,6 @@ def wire_and_thread_paths(torch, cuda_ola, audio, standard, eq, x, ip, op,
         fail("convert: FLAC -> WAV -> FLAC changed samples")
     log(f"convert: FLAC -> WAV -> FLAC through the int24 copy keeps all "
         f"{len(va)} frames ({conv_s:.3f} s for both)")
-    staging.shutdown_workers()
     return launches
 
 
@@ -3041,11 +2990,10 @@ def main() -> int:
                                tmp))
     declick_path(audio, tmp)
 
-    # -- 14-17. wire codec, wire paths, the threaded pipeline, convert -------
+    # -- 14-17. wire codec, the long file, the threaded pipeline, convert ---
     wire_codec_phase(torch, x, args.seed)
-    launches.update(wire_and_thread_paths(
-        torch, cuda_ola, audio, standard, eq, x, ip, op, cp, stream_alone_s,
-        tmp))
+    launches.update(thread_paths(torch, cuda_ola, audio, standard, eq, x,
+                                 stream_alone_s, tmp))
 
     # -- 18. process-batch ---------------------------------------------------
     batched = check_batched_tail(torch, cuda_ola)

@@ -20,7 +20,7 @@ import torch
 from tomatis_tpu.models import standard as jstd
 from tomatis_tpu.parallel import batch as jbatch
 from tomatis_tpu_torch.cli import main as cli_main
-from tomatis_tpu_torch.engine import staging, streaming
+from tomatis_tpu_torch.engine import streaming
 from tomatis_tpu_torch.io import audio
 from tomatis_tpu_torch.models import standard
 from tomatis_tpu_torch.models.standard import StandardParams, process
@@ -201,13 +201,11 @@ def test_wire_link_bytes_accounting(tmp_path):
 
 def test_wire_long_batch_keeps_the_local_codec(tmp_path):
     """Lanes of more than 8 chunks (where the reference starts its RPC
-    worker) encode and decode in this process: the worker stays down and
-    every file and state CSV equal the pcm24 batch's."""
-    staging.shutdown_workers()
+    worker) encode and decode in this process, and every file and state
+    CSV equal the pcm24 batch's."""
     ins = _files(tmp_path, [6.0, 3.5], ext="wav")     # 6 s: 143 frames
     _, outs_w, csvs_w = _run(tmp_path, ins, "wire", "wire")
     assert batch.LAST_TIMINGS["chunks"] > 8
-    assert not staging.rpc_available()
     _, outs_p, csvs_p = _run(tmp_path, ins, "pcm24", "pcm24")
     for i in range(2):
         assert _same_bytes(outs_w[i], outs_p[i])
@@ -243,7 +241,7 @@ def _sabotage(monkeypatch, target, what):
     (write) or its device pack's used count (used: a 3-word stream, which
     no decoder takes) from its third chunk on."""
     if what == "used":
-        pack, calls = streaming._pack_pcm24, [0]
+        pack, calls = batch._pack_pcm24, [0]
 
         def bad_pack(pcm, C, rice):
             words, used = pack(pcm, C, rice)
@@ -251,7 +249,7 @@ def _sabotage(monkeypatch, target, what):
             if calls[0] > 2 * 2 and calls[0] % 2 == 1:    # lane 0 of 2
                 used = torch.full_like(used, 3)
             return words, used
-        monkeypatch.setattr(streaming, "_pack_pcm24", bad_pack)
+        monkeypatch.setattr(batch, "_pack_pcm24", bad_pack)
         return
     orig_open = batch._Lane.open
 
@@ -347,17 +345,15 @@ def test_wire_batch_needs_the_card_unless_told(tmp_path):
 
 
 def test_batch_chunk_fn_wire_is_single_wire_step_per_lane():
-    """The batched wire step packs each lane as the single-file wire step
-    does: full, partial and empty lanes give the same words and used
-    counts, and the same aux and carries as the pcm24 batched step."""
+    """The wire batch packs each lane of the batched pcm24 step as
+    _pack_pcm24 packs the single-file pcm24 step's bytes: full, partial
+    and empty lanes give the same words and used counts, rice off and
+    on."""
     n_fft, hop, C, F = P.n_fft, P.hop, 2, 8
     ctl = standard.build_controller(P, SR, "cpu")
     eng = streaming.ChunkedStftEngine(n_fft, hop, C, F, device="cpu")
-    fn = eng.make_chunk_fn(ctl, transport="wire", rice_out=False)
+    fn = eng.make_chunk_fn(ctl, transport="pcm24")
     bfn = streaming.ChunkedStftEngine(
-        n_fft, hop, C, F, device="cpu").make_batch_chunk_fn(
-            ctl, transport="wire", rice_out=False)
-    pfn = streaming.ChunkedStftEngine(
         n_fft, hop, C, F, device="cpu").make_batch_chunk_fn(ctl)
     rng = np.random.default_rng(5)
     n_valid = [F, 5, 0]
@@ -370,19 +366,16 @@ def test_batch_chunk_fn_wire_is_single_wire_step_per_lane():
     carries = [torch.tensor(v, dtype=torch.int32) for v in (1, 2, 2)]
     gain = torch.tensor(0.8)
     nv = torch.tensor(n_valid, dtype=torch.int32)
-    (words, used), *rest = bfn(sig, nv, carries, ot, wt, ctl.params(), gain)
-    _, *prest = pfn(sig, nv, carries, ot, wt, ctl.params(), gain)
-    assert words.shape == (B, wire_ops.max_words(eng.emit_full, C))
-    for g, r in zip(rest, prest):
-        if isinstance(g, list):
-            assert all(torch.equal(a, b) for a, b in zip(g, r))
-        else:
-            assert torch.equal(g, r)
-    for b, n in enumerate(n_valid):
-        (w1, u1), *_ = fn(sig[b], n, carries[b], ot[b], wt[b],
-                          ctl.params(), gain)
-        assert int(used[b]) == int(u1)
-        assert torch.equal(words[b, :int(u1)], w1[:int(u1)])
+    pcm = bfn(sig, nv, carries, ot, wt, ctl.params(), gain)[0]
+    singles = [fn(sig[b], n, carries[b], ot[b], wt[b], ctl.params(),
+                  gain)[0] for b, n in enumerate(n_valid)]
+    for rice in (False, True):
+        words, used = batch._pack_lanes(pcm, C, rice)
+        assert words.shape == (B, wire_ops.max_words(eng.emit_full, C))
+        for b, one in enumerate(singles):
+            w1, u1 = batch._pack_pcm24(one, C, rice)
+            assert int(used[b]) == int(u1) > 0
+            assert torch.equal(words[b, :int(u1)], w1[:int(u1)])
 
 
 def test_flat_staging_unpacks_every_lane_exactly():
@@ -397,7 +390,7 @@ def test_flat_staging_unpacks_every_lane_exactly():
             np.zeros((n, ch)),
             np.rint(np.cumsum(rng.standard_normal((n, ch)), 0)) / 2**23]
     wins = [w.astype(np.float32) for w in wins]
-    streams = [streaming.stage_encode(w, False)[1] for w in wins]
+    streams = [batch.host_encode(w)[1] for w in wins]
     nfs = np.array([7, 3, 0, 7], np.int32)
     flat, offs, words = batch._stage_flat(streams, nfs, torch.device("cpu"))
     f = flat.numpy()

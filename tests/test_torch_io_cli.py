@@ -74,13 +74,13 @@ def test_resolve_transport():
     assert streaming.resolve_transport("auto", True) == ("pcm24", True)
     assert streaming.resolve_transport("auto", False) == ("f32", False)
     assert streaming.resolve_transport("f32", True) == ("f32", False)
-    assert streaming.resolve_transport("wire", True) == ("wire", True)
     assert streaming.resolve_transport("pcm24", True) == ("pcm24", True)
-    for tr in ("wire", "pcm24"):
-        with pytest.raises(ValueError, match="raw PCM_24"):
-            streaming.resolve_transport(tr, False)
-    with pytest.raises(ValueError):
-        streaming.resolve_transport("bogus", True)
+    with pytest.raises(ValueError, match="raw PCM_24"):
+        streaming.resolve_transport("pcm24", False)
+    for tr in ("bogus", "wire"):
+        for raw in (True, False):
+            with pytest.raises(ValueError, match="unknown transport"):
+                streaming.resolve_transport(tr, raw)
 
 
 @pytest.mark.parametrize("total,n_fft,hop", [
@@ -169,14 +169,15 @@ def test_cli_process_on_cpu(tmp_path, capsys):
                           "--frames_per_chunk", "16"]) == 0
     assert not ck.exists() and audio.info(fo).frames == len(x)
     np.testing.assert_array_equal(audio.read(fo)[0], audio.read(op)[0])
-    # the wire transport, asked for by name, writes the same bytes; an
-    # unknown one is refused by the parser before the output is touched
+    # the reference's single-file wire transport and an unknown one are
+    # refused by the parser (exit 2) before the output is touched
     before = fo.read_bytes()
-    fw = tmp_path / "w.flac"
-    assert cli_main.main(["process", "-i", str(fi), "-o", str(fw),
-                          "--device", "cpu", "--transport", "wire",
-                          "--frames_per_chunk", "16"]) == 0
-    assert fw.read_bytes() == before
+    with pytest.raises(SystemExit) as refused:
+        cli_main.main(["process", "-i", str(fi), "-o", str(fo),
+                       "--device", "cpu", "--transport", "wire",
+                       "--frames_per_chunk", "16"])
+    assert refused.value.code == 2
+    assert fo.read_bytes() == before
     with pytest.raises(SystemExit):
         cli_main.main(["process", "-i", str(fi), "-o", str(fo),
                        "--device", "cpu", "--transport", "bogus"])

@@ -117,9 +117,14 @@ def test_apply_eq_progress_error_propagates(tmp_path):
 
 
 def test_stage_encode_to_device_contract():
-    """The tagged staging items and their stats accounting."""
-    from tomatis_tpu_torch.engine.streaming import (stage_encode,
-                                                    stage_to_device)
+    """stage_to_device uploads a float window as it is and scales a
+    window of PCM_24 ints on the device as the file readers scale them;
+    the wire batch's host_encode tags a PCM_24-exact float window "wire"
+    (its stream unpacks to the window bit for bit) and any other
+    "raw_inexact", which ships as floats."""
+    from tomatis_tpu_torch.engine.streaming import stage_to_device
+    from tomatis_tpu_torch.ops import wire as wire_ops
+    from tomatis_tpu_torch.parallel import batch
 
     n, ch = 512, 2
     exact = (np.arange(n * ch, dtype=np.float32).reshape(n, ch)
@@ -127,33 +132,22 @@ def test_stage_encode_to_device_contract():
     inexact = exact + np.float32(1e-9)
     ints = np.arange(n * ch, dtype=np.int32).reshape(n, ch) - 500
 
-    stats = {"in_bytes": 0, "in_raw_chunks": 0}
-    kind, _ = stage_encode(exact, int_in=False)
-    assert kind == "wire"
-    kind, val = stage_encode(inexact, int_in=False)
-    assert kind == "raw_inexact"
-    out = stage_to_device((kind, val), n, ch, stats, "cpu")
+    out = stage_to_device(inexact, "cpu")
     assert isinstance(out, torch.Tensor) and out.dtype == torch.float32
-    np.testing.assert_array_equal(out.numpy(), val)
-    assert stats["in_raw_chunks"] == 1
-
-    kind, val = stage_encode(ints, int_in=True)
-    assert kind == "wire"
-    dev = stage_to_device((kind, val), n, ch, stats, "cpu")
-    assert stats["in_bytes"] == len(val) > 0
-    np.testing.assert_array_equal(
-        np.rint(dev.numpy() * 8388608.0).astype(np.int32), ints)
-
-    # wire_input=False bypasses encoding entirely; PCM_24 ints shipped raw
-    # are scaled on the device as the file readers scale them
-    kind, val = stage_encode(exact, int_in=False, wire_input=False)
-    assert kind == "raw" and val is exact
-    kind, val = stage_encode(ints, int_in=True, wire_input=False)
-    assert kind == "raw" and val is ints
-    dev = stage_to_device((kind, val), n, ch, stats, "cpu")
+    np.testing.assert_array_equal(out.numpy(), inexact)
+    dev = stage_to_device(ints, "cpu")
+    assert dev.dtype == torch.float32
     np.testing.assert_array_equal(
         dev.numpy(), ints.astype(np.float32) / np.float32(8388608.0))
-    assert stats["in_raw_chunks"] == 1
+
+    kind, val = batch.host_encode(exact)
+    assert kind == "wire" and 0 < len(val) < exact.nbytes
+    words = torch.from_numpy(np.frombuffer(val.tobytes(), np.int32).copy())
+    np.testing.assert_array_equal(
+        wire_ops.unpack_device(words, n, ch, batch.WIRE_RICE_IN).numpy(),
+        exact)
+    kind, val = batch.host_encode(inexact)
+    assert kind == "raw_inexact" and val is inexact
 
 
 def test_staged_pipeline_stage_order_and_depth():
@@ -254,8 +248,8 @@ def test_staged_pipeline_shallow_depth_advances_all_stages():
 
 def test_chunk_readback_stages_on_cpu():
     """ChunkReadback on CPU tensors: no pinned memory and no event, the
-    host arrays are the tensors; the wire form hands over words[:used]
-    and counts the used bytes."""
+    host arrays are the tensors; the stream form hands over
+    words[:used]."""
     from tomatis_tpu_torch.engine.streaming import ChunkReadback
 
     payload = torch.arange(12, dtype=torch.uint8)
@@ -275,6 +269,5 @@ def test_chunk_readback_stages_on_cpu():
     rb.copy_to_host_async()
     rb.start_stream()
     got = rb.materialize()
-    assert rb.used_bytes == 16
     np.testing.assert_array_equal(got[0], aux.numpy())
     np.testing.assert_array_equal(got[1], np.arange(4, dtype=np.int32))

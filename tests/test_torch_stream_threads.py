@@ -43,7 +43,7 @@ def _wait_threads_settle(baseline, timeout=6.0):
     return threading.active_count() <= baseline
 
 
-@pytest.mark.parametrize("transport", ["f32", "pcm24", "wire"])
+@pytest.mark.parametrize("transport", ["f32", "pcm24"])
 def test_consumer_exception_propagates_and_threads_exit(transport):
     """on_audio (file-write stand-in) raising on the consumer thread must
     fail the run itself, not hang it or die silently."""
@@ -112,7 +112,7 @@ def test_run_after_failure_is_reusable():
         stats = runner.run(sig, on_audio=outs.append)
         y = np.concatenate([o.reshape(-1, 2) for o in outs])
         assert len(y) == len(sig)
-        assert stats["n_frames"] > 0 and stats["producer"] == "thread"
+        assert stats["n_frames"] > 0
         ys.append(y)
     np.testing.assert_array_equal(ys[0], ys[1])
 
@@ -200,11 +200,10 @@ def _in_order_run(runner, sig, on_frames):
     on one thread with nothing in flight: the oracle of the pipeline's
     ordering (what run() did before it was threaded)."""
     from tomatis_tpu_torch.engine.streaming import SinkState
-    from tomatis_tpu_torch.io import wirecodec
     from tomatis_tpu_torch.utils.rolling import RollingReader
     eng, plan = runner.engine, runner.plan
     pad, hop, n_frames = plan.pad, eng.hop, plan.n_frames
-    byte_payload = runner.transport in ("pcm24", "wire")
+    byte_payload = runner.transport == "pcm24"
     pos = [0]
 
     def read(n):
@@ -226,13 +225,7 @@ def _in_order_run(runner, sig, on_frames):
             reader.window(-pad + frame0 * hop, e_i.chunk_input_len)))
         payload, aux, out, carry, ot, wt = fn(
             x, nf, carry, ot, wt, runner.ctl_params, runner.gain_f32)
-        if runner.transport == "wire":
-            words, used = payload
-            payload = wirecodec.decode_pcm24(
-                words.numpy()[:int(used)].view(np.uint8), e_i.emit_full, 2)
-        else:
-            payload = payload.numpy()
-        sink.route(runner, e_i, frame0, nf, payload, aux.numpy(), out,
+        sink.route(runner, e_i, frame0, nf, payload.numpy(), aux.numpy(), out,
                    on_frames, outs.append, byte_payload)
         frame0 += nf
         if frame0 < n_frames:
@@ -243,7 +236,7 @@ def _in_order_run(runner, sig, on_frames):
     return outs
 
 
-@pytest.mark.parametrize("transport", ["f32", "pcm24", "wire"])
+@pytest.mark.parametrize("transport", ["f32", "pcm24"])
 @pytest.mark.parametrize("seconds,fpc", [(7.0, 8), (31.0, 256)],
                          ids=["many_chunks", "ramp_and_full_last"])
 def test_threaded_run_equals_in_order_run(transport, seconds, fpc):
@@ -264,7 +257,7 @@ def test_threaded_run_equals_in_order_run(transport, seconds, fpc):
         eng = ChunkedStftEngine(p.n_fft, p.hop, 2, frames_per_chunk=fpc,
                                 device="cpu")
         return StreamRunner(eng, build_controller(p, SR, "cpu"), len(sig),
-                            transport=transport, wire_input=False)
+                            transport=transport)
 
     logs = {"thr": [], "ord": []}
 

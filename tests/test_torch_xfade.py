@@ -214,13 +214,16 @@ def test_cli_process_xfade_and_convert(tmp_path, capsys):
     side = json.loads((tmp_path / "out.flac.params.json").read_text())
     assert side["tool"] == "process-xfade" and side["xfade_ms"] == 100.0
     assert "alpha" in read_state_csv(cp)
-    # the wire transport, asked for by name, writes the same bytes
-    ow = tmp_path / "out_wire.flac"
-    assert cli_main.main(["process-xfade", "-i", str(ip), "-o", str(ow),
-                          "--xfade_ms", "100", "--gate_ui", "60",
-                          "--device", "cpu", "--transport", "wire",
-                          "--frames_per_chunk", "16"]) == 0
-    assert ow.read_bytes() == op.read_bytes()
+    # the reference's single-file wire transport is refused by the
+    # parser (exit 2) before the output is touched
+    before = op.read_bytes()
+    with pytest.raises(SystemExit) as refused:
+        cli_main.main(["process-xfade", "-i", str(ip), "-o", str(op),
+                       "--xfade_ms", "100", "--gate_ui", "60",
+                       "--device", "cpu", "--transport", "wire",
+                       "--frames_per_chunk", "16"])
+    assert refused.value.code == 2
+    assert op.read_bytes() == before
     capsys.readouterr()
     # convert: FLAC -> WAV -> FLAC keeps every PCM_24 sample
     wp, fp = tmp_path / "c.wav", tmp_path / "c.flac"

@@ -2,8 +2,8 @@
 
 The package's public names live in modules that import torch. Resolving
 them at first touch keeps `import tomatis_tpu_torch` and the host-only
-sub-packages (io, native, and ops.wire or engine.staging, which the
-staging worker process imports) free of torch and of a CUDA context.
+sub-packages (io, native, and ops.wire) free of torch and of a CUDA
+context.
 """
 from __future__ import annotations
 

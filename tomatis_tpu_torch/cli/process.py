@@ -46,11 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--progress", action="store_true",
                     help="print per-chunk progress")
     ap.add_argument("--transport", default="auto",
-                    choices=["auto", "wire", "pcm24", "f32"],
-                    help="host<->device link transport: wire = lossless "
-                         "compression both ways (thin links), pcm24 = "
-                         "device-packed PCM_24 bytes without the codec "
-                         "(PCIe hosts), f32 = raw floats; auto picks pcm24")
+                    choices=["auto", "pcm24", "f32"],
+                    help="host<->device link transport: pcm24 = "
+                         "device-packed PCM_24 bytes, f32 = raw floats; "
+                         "auto picks pcm24")
     add_device_flag(ap)
     add_engine_flags(ap)
     return ap

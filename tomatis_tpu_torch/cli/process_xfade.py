@@ -36,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--progress", action="store_true",
                     help="print per-chunk progress")
     ap.add_argument("--transport", default="auto",
-                    choices=["auto", "wire", "pcm24", "f32"],
+                    choices=["auto", "pcm24", "f32"],
                     help="host<->device link transport (see process)")
     add_device_flag(ap)
     add_engine_flags(ap)

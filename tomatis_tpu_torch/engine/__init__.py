@@ -1,7 +1,7 @@
 """engine of the PyTorch port (mirrors tomatis_tpu/engine/).
 
-The streaming names import torch and resolve at first touch: the staging
-worker imports engine.staging, which must leave torch out.
+The streaming names import torch and resolve at first touch, so that
+importing the package leaves torch out.
 """
 from tomatis_tpu_torch._lazy import lazy_getattr
 

@@ -15,40 +15,35 @@ tomatis_tpu/engine/streaming.py.
   samples with per-flush peak clamping to 0.999, via an explicit flush
   plan (flush boundaries change the audible output).
 
-The stream loop is the reference's: a producer (a thread, or the staging
-process of engine/staging.py for long wire-input files) reads the file
-and, on the wire transport, C++-encodes the input; the calling thread
-uploads, enqueues the chunk step and moves every chunk through the
-depth-3 pipeline of utils/pipeline.py (S1 a CUDA event wait and a
-non-blocking readback into pinned memory, S2 the wire stream's fetch once
-its length is known, S3 the hand-over); an ordered writer thread decodes,
-routes, drains the flush cuts and calls the sinks. All enqueueing stays
-on the calling thread (torch's current stream and device are
-thread-local). What the threads hide on a PCIe-attached card is not a
-link but the host codecs: the input file's decode and the output file's
-encode overlap each other and the device. Checkpoint/resume
-(engine/checkpoint.py) snapshots the stream state between chunks, under
-the reference's .npz key names, with the pipeline drained first.
+The stream loop is the reference's: a producer thread reads the file;
+the calling thread uploads, enqueues the chunk step and moves every chunk
+through the depth-3 pipeline of utils/pipeline.py (S1 a CUDA event wait
+and a non-blocking readback into pinned memory, S3 the hand-over); an
+ordered writer thread routes, drains the flush cuts and calls the sinks.
+All enqueueing stays on the calling thread (torch's current stream and
+device are thread-local). What the threads hide on a PCIe-attached card
+is not a link but the host codecs: the input file's decode and the
+output file's encode overlap each other and the device.
+Checkpoint/resume (engine/checkpoint.py) snapshots the stream state
+between chunks, under the reference's .npz key names, with the pipeline
+drained first.
 
 Transports: "f32" reads floats back, "pcm24" PCM_24 bytes quantised on
-the device, "wire" the same bytes losslessly compressed on the device
-(ops/wire.py) and decoded by the C++ codec on the host, with the input
-compressed the other way round. All three write the same file to <= 1
-LSB (pcm24 and wire: the same bytes).
+the device; both write the same file to <= 1 LSB. The reference's third,
+"wire" (the link compressed both ways), is not carried over for one
+file: on an H100 host it wrote pcm24's bytes 11-28% slower. It lives on
+in parallel/batch.py, which picks it from the measured link.
 """
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
-from tomatis_tpu_torch.engine import staging
 from tomatis_tpu_torch.ops import cuda_ola, stft
-from tomatis_tpu_torch.ops import wire as wire_ops
 from tomatis_tpu_torch.ops.dsp import EPS, PEAK_LIMIT, frame_levels_dbfs
 from tomatis_tpu_torch.utils import trace
 from tomatis_tpu_torch.utils.pcm import le24_from_i32
@@ -57,68 +52,6 @@ from tomatis_tpu_torch.utils.pipeline import (OrderedWorker, Prefetcher,
 from tomatis_tpu_torch.utils.rolling import RollingReader
 
 FLUSH_THRESHOLD = 48000 * 5  # hard-coded in the reference (src/process_tomatis.py:420)
-
-# Static rice switches of the wire transport, one per link DIRECTION (the
-# per-block rice mode is a stream property; encoder and decoder of each
-# direction pair by construction, and the host decoders accept either
-# stream). Rice saves a few percent of link bytes on program material and
-# costs device time on both halves:
-# - input (host C++ encode -> device unpack): OFF, as in the reference.
-# - output (device pack -> host C++ decode): by the measured link.
-#   resolve_rice_out() probes the device->host rate once; the
-#   TOMATIS_WIRE_RICE_OUT env var forces 0/1.
-WIRE_RICE_IN = False
-WIRE_RICE_OUT = False
-
-# Device->host rate below which rice-out pays: the bytes rice saves per
-# chunk over the extra device time of the rice pack. chip_smoke.py reads
-# both at the production chunk on an H100 80GB HBM3 (700 W): 0.371 MB
-# saved for 16.6 ms more pack time, so the break-even is about 22 MB/s
-# (PERF.md). A PCIe link is three orders of magnitude above it.
-RICE_OUT_BW_THRESHOLD_MBPS = 22.0
-
-_RICE_OUT_MEMO: dict = {}
-
-
-def probe_d2h_mbps(mb: float = 4.0, fresh: bool = False,
-                   device="cuda") -> float:
-    """One-shot device->host bandwidth estimate in MB/s (memoised per
-    process): time the copy of a device tensor of `mb` MB into pinned
-    memory. `fresh=True` bypasses and refreshes the memo. Raises without
-    a CUDA device: there is no link to measure."""
-    if not fresh and "bw" in _RICE_OUT_MEMO:
-        return _RICE_OUT_MEMO["bw"]
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise RuntimeError("probe_d2h_mbps needs a CUDA device")
-    n = int(mb * 1e6 / 4)
-    a = torch.arange(n, dtype=torch.float32, device=dev) + 1.0
-    host = torch.empty(n, dtype=torch.float32, pin_memory=True)
-    host.copy_(a)                                # warm the path
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    host.copy_(a, non_blocking=True)
-    torch.cuda.synchronize(dev)
-    bw = host.numel() * 4 / 1e6 / max(time.perf_counter() - t0, 1e-9)
-    _RICE_OUT_MEMO["bw"] = bw
-    return bw
-
-
-def resolve_rice_out(device="cuda") -> bool:
-    """Engine-wide rice-out policy: env force (TOMATIS_WIRE_RICE_OUT=0/1)
-    or, by default, one memoised d2h bandwidth probe against
-    RICE_OUT_BW_THRESHOLD_MBPS. A CPU device has no link: the module
-    default."""
-    env = os.environ.get("TOMATIS_WIRE_RICE_OUT", "auto")
-    if env in ("0", "1"):
-        return env == "1"
-    if "choice" not in _RICE_OUT_MEMO:
-        if torch.device(device).type != "cuda":
-            return WIRE_RICE_OUT
-        _RICE_OUT_MEMO["choice"] = (probe_d2h_mbps(device=device)
-                                    < RICE_OUT_BW_THRESHOLD_MBPS)
-    return _RICE_OUT_MEMO["choice"]
-
 
 def ramp_disabled() -> bool:
     """True when TOMATIS_NO_RAMP disables the chunk ramp-up schedule.
@@ -131,22 +64,21 @@ def ramp_disabled() -> bool:
 def resolve_transport(transport: str, supports_raw: bool):
     """Resolve a user-facing transport against the sink.
 
-    transport: "auto" | "wire" | "pcm24" | "f32". Returns (resolved
-    transport, byte_payload), byte_payload saying that the sink receives
-    raw PCM_24 bytes (write_raw) rather than float samples. On the port
-    "auto" picks pcm24 on a raw-capable sink (the reference's advice for
+    transport: "auto" | "pcm24" | "f32". Returns (resolved transport,
+    byte_payload), byte_payload saying that the sink receives raw PCM_24
+    bytes (write_raw) rather than float samples. On the port "auto" picks
+    pcm24 on a raw-capable sink (the reference's advice for
     PCIe-attached hosts, where the link is free and host cores are
-    scarce), f32 otherwise; "wire" runs when asked for by name. A byte
-    transport on a sink that cannot take raw PCM_24 is an error, not a
-    silent downgrade."""
-    if transport not in ("auto", "wire", "pcm24", "f32"):
+    scarce), f32 otherwise. A byte transport on a sink that cannot take
+    raw PCM_24 is an error, not a silent downgrade."""
+    if transport not in ("auto", "pcm24", "f32"):
         raise ValueError(f"unknown transport {transport!r}")
     if transport == "auto":
         transport = "pcm24" if supports_raw else "f32"
-    elif transport in ("wire", "pcm24") and not supports_raw:
+    elif transport == "pcm24" and not supports_raw:
         raise ValueError(f"transport {transport!r} requires a sink that "
                          "accepts raw PCM_24 bytes")
-    return transport, transport in ("wire", "pcm24")
+    return transport, transport == "pcm24"
 
 
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -161,39 +93,13 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return pinned.to(device, non_blocking=True)
 
 
-def stage_encode(sig: np.ndarray, int_in: bool, wire_input: bool = True):
-    """Host half of input staging (safe on a producer thread: file-read
-    products + C++ wire encode only, no torch calls): wire-compress the
-    chunk when it is PCM_24-exact. Int24 sources stay integer end to end;
-    float sources that are not PCM_24-exact ship raw. Returns a tagged
-    item for stage_to_device."""
-    if not wire_input:
-        return ("raw", sig)
-    return staging.host_encode(sig, int_in, WIRE_RICE_IN)
-
-
-def stage_to_device(item, n: int, ch: int, stats: dict | None = None,
-                    device="cuda") -> torch.Tensor:
+def stage_to_device(sig: np.ndarray, device="cuda") -> torch.Tensor:
     """Device half of input staging (call from the dispatching thread:
-    every enqueue stays on one thread): upload, and unpack wire items on
-    the device, bit-identical to shipping the floats; a raw chunk of
-    PCM_24 ints (an int24 read on a raw transport) is scaled there,
-    v / 2^23, as the file readers scale it. Returns the chunk's float32
-    [n, ch] tensor. stats, when given, accumulates in_bytes /
-    in_raw_chunks."""
-    device = torch.device(device)
-    kind, val = item
-    if kind == "wire":
-        if stats is not None:
-            stats["in_bytes"] += len(val)
-        pad = (-len(val)) % 4
-        if pad:
-            val = np.concatenate([val, np.zeros(pad, np.uint8)])
-        return wire_ops.unpack_device(_upload(val, device), n, ch,
-                                      WIRE_RICE_IN)
-    if kind == "raw_inexact" and stats is not None:
-        stats["in_raw_chunks"] += 1
-    t = _upload(val, device)
+    every enqueue stays on one thread): upload the chunk's window; a
+    window of PCM_24 ints (an int24 read) is scaled there, v / 2^23, as
+    the file readers scale it. Returns the chunk's float32 [n, ch]
+    tensor."""
+    t = _upload(sig, torch.device(device))
     if t.dtype == torch.int32:
         t = t.to(torch.float32) / 8388608.0
     return t
@@ -278,8 +184,7 @@ class ChunkedStftEngine:
                             device=self.device))
 
     def make_chunk_fn(self, controller, transport: str = "f32",
-                      norm: str = "eps",
-                      rice_out: bool | None = None) -> Callable:
+                      norm: str = "eps") -> Callable:
         """Build the chunk step
         fn(sig [L, C], n_valid, ctl_carry, out_tail, w_tail, params,
            gain_lin) -> (payload, aux, out, ctl_carry', out_tail', w_tail').
@@ -299,31 +204,16 @@ class ChunkedStftEngine:
             pre-quantisation float tensor, left on the device for the rare
             clamped flush (ints saturate at full scale, so a clamp cannot
             be recovered from the bytes).
-        transport="wire": the pcm24 step (the same single launch of the
-            chunk-tail kernel), then the PCM_24 ints, sign-extended from
-            the kernel's bytes, are losslessly compressed on the device
-            (ops.wire.pack_device); payload is (words int32 [max_words],
-            used int32 0-d). The host reads `used` in its small readback,
-            fetches words[:used] and decodes with the native codec
-            (io.wirecodec) into the very payload pcm24 ships raw.
-
-        rice_out: the wire pack's rice mode for THIS step (None = the
-        module default WIRE_RICE_OUT; callers wanting the measured-link
-        policy pass resolve_rice_out()). The host decoder reads the mode
-        per block, so steps of either mode feed the same sinks.
 
         norm: "eps" y/(w + 1e-12), the streaming processors' convention;
         "floor8" y/max(w, 1e-8), the adaptive processor's.
         """
-        if transport not in ("f32", "pcm24", "wire"):
-            raise ValueError(transport)
-        rice = WIRE_RICE_OUT if rice_out is None else bool(rice_out)
+        if transport not in ("f32", "pcm24"):
+            raise ValueError(f"unknown transport {transport!r}")
         if norm not in ("eps", "floor8"):
             raise ValueError(norm)
         log_keys = self._bind_log_keys(controller)
         self.transport = transport
-        tail_transport = "f32" if transport == "f32" else "pcm24"
-        C = self.channels
         n_fft, hop, F = self.n_fft, self.hop, self.frames_per_chunk
         dev = self.device
         win = torch.as_tensor(self.window, device=dev)
@@ -351,7 +241,7 @@ class ChunkedStftEngine:
             # possibly partial chunk the tail is complete here.
             out, peaks, pcm, ola_t, w_t = chunk_tail(
                 z, win, win2, n_valid, out_tail, w_tail, gain_lin,
-                norm=norm, transport=tail_transport)
+                norm=norm, transport=transport)
             rows = [levels] + [log[k] for k in log_keys]
             rows = [torch.nn.functional.pad(r.to(torch.float32), (0, W - F))
                     for r in rows]
@@ -363,10 +253,7 @@ class ChunkedStftEngine:
                 carries = (ctl_carry, out_tail, w_tail)
             if transport == "f32":
                 return (out, torch.stack(rows), None) + carries
-            aux = torch.stack(rows + [peaks])
-            if transport == "wire":
-                return (_pack_pcm24(pcm, C, rice), aux, out) + carries
-            return (pcm, aux, out) + carries
+            return (pcm, torch.stack(rows + [peaks]), out) + carries
 
         return chunk_fn
 
@@ -384,15 +271,14 @@ class ChunkedStftEngine:
         self.log_keys = log_keys
         return log_keys
 
-    def make_batch_chunk_fn(self, controller, transport: str = "pcm24",
-                            rice_out: bool | None = None) -> Callable:
+    def make_batch_chunk_fn(self, controller) -> Callable:
         """The chunk step of B file lanes (parallel/batch.py), the
         counterpart of the reference's jax.vmap of make_chunk_fn over lanes
         (tomatis_tpu/parallel/batch.py:272):
         fn(sig [B, L, C], n_valid int32 [B], ctl_carries (a list of B
         carries), out_tail [B, tail, C], w_tail [B, tail], params,
-        gain_lin) -> (payload, aux [B, R, W], out [B, emit_full, C],
-        ctl_carries', out_tail', w_tail').
+        gain_lin) -> (pcm [B, emit_full*C*3] uint8, aux [B, R, W],
+        out [B, emit_full, C], ctl_carries', out_tail', w_tail').
 
         Framing, levels, the controller and the rFFT gain bank run lane by
         lane at the single-file shapes, so each lane's arithmetic (cuFFT's
@@ -400,16 +286,8 @@ class ChunkedStftEngine:
         batched chunk tail serves every lane. A lane with n_valid == 0
         freezes every carry: the kernel writes its tails back, and its
         controller carry is kept by torch.where on n_valid > 0 (no host
-        sync).
-
-        transport="pcm24": payload is pcm [B, emit_full*C*3] uint8.
-        transport="wire": the same launch, then each lane's PCM_24 ints
-        packed as make_chunk_fn's wire step packs them (the per-lane loop
-        is the counterpart of the vmapped pack); payload is (words int32
-        [B, max_words], used int32 [B]). rice_out as in make_chunk_fn."""
-        if transport not in ("pcm24", "wire"):
-            raise ValueError(transport)
-        rice = WIRE_RICE_OUT if rice_out is None else bool(rice_out)
+        sync). The step is pcm24's: payload, aux and out as make_chunk_fn's
+        with transport="pcm24", one lane per row."""
         log_keys = self._bind_log_keys(controller)
         n_fft, hop, F = self.n_fft, self.hop, self.frames_per_chunk
         C, W, dev = self.channels, self.aux_width, self.device
@@ -443,10 +321,6 @@ class ChunkedStftEngine:
                 z, win, win2, n_valid, out_tail, w_tail, gain_lin,
                 transport="pcm24")
             aux = torch.cat([torch.stack(aux_rows), peaks[:, None, :]], 1)
-            if transport == "wire":
-                packed = [_pack_pcm24(pcm[b], C, rice) for b in range(B)]
-                pcm = (torch.stack([w for w, _ in packed]),
-                       torch.stack([u for _, u in packed]))
             return pcm, aux, out, carries, ola_t, w_t
 
         return chunk_fn
@@ -456,7 +330,7 @@ class ChunkedStftEngine:
 # Host-side stream driver.
 # ---------------------------------------------------------------------------
 
-def _read_fn(source, int_in: bool):
+def _read_fn(source):
     """read(n) callable over an AudioFile reader or an ndarray."""
     if isinstance(source, np.ndarray):
         x = source if source.ndim == 2 else source[:, None]
@@ -467,7 +341,7 @@ def _read_fn(source, int_in: bool):
             cur[0] += len(blk)
             return blk
         return read
-    return source.read_int24 if int_in else source.read
+    return source.read
 
 
 def timed_read(read, acc: dict, job: int = 0, at=None):
@@ -494,17 +368,6 @@ def _host(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         return t.detach().cpu().numpy()
     return np.asarray(t)
-
-
-def _pack_pcm24(pcm, C: int, rice: bool):
-    """The chunk tail's PCM_24 bytes [n*C*3] -> wire_ops.pack_device's
-    (words, used). The bytes are sign-extended, so the pack sees exactly
-    the ints the pcm24 transport ships."""
-    b = pcm.view(-1, 3)
-    v = (b[:, 0].to(torch.int32)
-         | (b[:, 1].to(torch.int32) << 8)
-         | (b[:, 2].view(torch.int8).to(torch.int32) << 16)).reshape(-1, C)
-    return wire_ops.pack_device(v, v.shape[0], C, rice=rice)
 
 
 def _carry_leaves(carry) -> list:
@@ -542,9 +405,10 @@ class ChunkReadback:
     the tensors are the host arrays. The choice follows the tensors'
     device, never a caught error.
 
-    fetch: the tensors read back in S1 (payload and aux; for wire the aux
-    alone). stream: wire only, (words, used): `used` rides S1, and S2
-    fetches words[:used] once it is known."""
+    fetch: the tensors read back in S1. stream: None, or (data, used) for
+    a prefix of `data` whose length is only known on the device: `used`
+    rides S1, and S2 fetches data[:used] once it is known (the wire batch
+    of parallel/batch.py reads its compressed output so)."""
 
     def __init__(self, fetch: list, stream=None):
         self._fetch = list(fetch)
@@ -554,7 +418,6 @@ class ChunkReadback:
         self._cuda = self._fetch[0].is_cuda
         self._host: list = []
         self._event = None
-        self.used_bytes = 0
         if self._cuda:
             self._event = torch.cuda.Event()
             self._event.record()
@@ -585,42 +448,21 @@ class ChunkReadback:
         self._mark()
 
     def start_stream(self) -> None:
-        """S2 (wire): read `used` from the small readback and start the
-        fetch of the used part of the stream."""
+        """S2: read `used` from the S1 readback and start the fetch of
+        stream[0][:used]; a no-op without a stream."""
         if self._stream is None:
             return
         self._wait()
         used = int(self._host.pop())
-        self.used_bytes = used * 4
         self._host.append(self._copy(self._stream[0][:used]))
         self._mark()
 
     def materialize(self) -> list:
-        """S3: wait the copies out; the host arrays in fetch order (for
-        wire the stream's int32 words last)."""
+        """S3: wait the copies out; the host arrays in fetch order (the
+        stream's prefix last)."""
         self._wait()
         self._fetch, self._stream = [], None
         return [h.numpy() for h in self._host]
-
-
-class _ProcessPrefetch:
-    """Prefetcher-shaped facade over a staging.StagedStream: items arrive
-    in chunk order, and each chunk's engine comes from the schedule the
-    runner computed."""
-
-    def __init__(self, stream, engines: list):
-        self._stream = stream
-        self._engines = engines
-        self._i = 0
-
-    def get(self):
-        item = self._stream.get()   # raises StopIteration / the error
-        e_i = self._engines[self._i]
-        self._i += 1
-        return item, e_i
-
-    def close(self):
-        self._stream.close()
 
 
 class StreamRunner:
@@ -633,28 +475,16 @@ class StreamRunner:
         on_frames(frame_idx0, starts, log)   per engine chunk (host arrays)
         on_audio(chunk)                      clamped output in file order:
                                              float [n, C] (f32) or PCM_24
-                                             bytes (pcm24, wire)
+                                             bytes (pcm24)
     """
 
     def __init__(self, engine: ChunkedStftEngine, controller, total: int,
                  output_gain_db: float = 0.0, transport: str = "f32",
-                 build_chunk_fn: bool = True, wire_input: bool = True,
-                 wire_rice_out: bool | None = None):
+                 build_chunk_fn: bool = True):
         """transport="pcm24" quantises and packs PCM_24 bytes on the device;
         the per-flush clamp decision then uses device-computed per-hop-block
         peaks, and the (rare) clamped flush rescales the pre-quantisation
         floats and re-encodes on the host: <= 1 LSB from the f32 path.
-        transport="wire" additionally compresses the PCM_24 ints
-        losslessly on the device (see make_chunk_fn).
-
-        wire_input: compress the host->device input with the wire codec
-        (native C++ encode, unpack on the device) whenever the input chunk
-        is exactly PCM_24-representable: bit-identical to the float32
-        upload it replaces. Chunks that are not PCM_24-exact (float
-        sources) ship as float32.
-
-        wire_rice_out: the wire transport's output rice mode; None picks
-        by the measured link (resolve_rice_out).
 
         build_chunk_fn=False: the runner carries the flush plan, total and
         output gain of one lane of parallel/batch.py and builds no chunk
@@ -666,11 +496,7 @@ class StreamRunner:
             if output_gain_db else 1.0
         self.plan = flush_plan(total, engine.n_fft, engine.hop)
         self.transport = transport
-        if wire_rice_out is None and transport == "wire" and build_chunk_fn:
-            wire_rice_out = resolve_rice_out(engine.device)
-        self.wire_rice_out = wire_rice_out
-        self.chunk_fn = (engine.make_chunk_fn(controller, transport=transport,
-                                              rice_out=wire_rice_out)
+        self.chunk_fn = (engine.make_chunk_fn(controller, transport=transport)
                          if build_chunk_fn else None)
         # Ramp-up schedule (F/4, F/2, then F): it fills the pipeline
         # sooner, and it is kept from the reference so that a stream is cut
@@ -687,17 +513,13 @@ class StreamRunner:
                                       engine.channels, f,
                                       window=engine.window,
                                       device=engine.device)
-                self._by_F[f] = (e, e.make_chunk_fn(
-                    controller, transport=transport,
-                    rice_out=wire_rice_out))
+                self._by_F[f] = (e, e.make_chunk_fn(controller,
+                                                    transport=transport))
         self.ctl_params = controller.params()
         self.gain_f32 = torch.tensor(self.output_gain, dtype=torch.float32,
                                      device=engine.device)
         self.stats = {}
         self.audio_samples_written = 0
-        self.wire_input = wire_input
-        self.wire_stats = {"in_bytes": 0, "out_bytes": 0,
-                           "in_raw_chunks": 0}
 
     def _chunk_F(self, frame0: int) -> int:
         """Frame count of the chunk starting at absolute frame `frame0` (a
@@ -731,7 +553,7 @@ class StreamRunner:
         None); stats["job_id"] holds it."""
         job = trace.new_job() if job is None else job
         eng, plan = self.engine, self.plan
-        hop, C, F_c = eng.hop, eng.channels, eng.frames_per_chunk
+        hop, C = eng.hop, eng.channels
         pad, n_frames = plan.pad, plan.n_frames
         dev = eng.device
 
@@ -745,9 +567,9 @@ class StreamRunner:
         # utils.trace spans of its name. Calling thread: stream.setup
         # (carries, tails, resume, reader, helper threads; the caller adds
         # the runner's construction), stream.input (stream.producer_wait
-        # and stream.upload: the upload and the unpack's enqueue),
+        # and stream.upload),
         # stream.dispatch (stream.step: the chunk step's enqueue;
-        # stream.promote: S1/S2), stream.consume (the S3 waits:
+        # stream.promote: S1), stream.consume (the S3 waits:
         # stream.readback; the writer's back-pressure and joins:
         # stream.backpressure) and stream.final_drain (the stream tail and
         # the last flush cut). Producer thread: producer.decode (the
@@ -763,12 +585,9 @@ class StreamRunner:
             return trace.span(name, timings if key else None, key, job=job,
                               at=at)
 
-        wire = self.transport == "wire"
-        byte_payload = self.transport in ("pcm24", "wire")
+        byte_payload = self.transport == "pcm24"
         sink = SinkState(pad)
         self.audio_samples_written = 0
-        self.wire_stats = {"in_bytes": 0, "out_bytes": 0,
-                           "in_raw_chunks": 0}
         frame0 = 0
         write = (timed_sink(on_audio, timings, job)
                  if on_audio is not None else None)
@@ -806,13 +625,6 @@ class StreamRunner:
                     # both)
                     sink.float_refs = [(sink.out_base, len(fr), fr)]
 
-            # Float-free input: when the source reads losslessly as PCM_24
-            # ints and the wire codec ships the input, the whole host
-            # input path stays integer (no float conversion, no exactness
-            # check).
-            int_in = (self.wire_input and not isinstance(source, np.ndarray)
-                      and getattr(source, "int24_readable", False))
-
             # rolling input in absolute sample coordinates (the stream
             # starts at -pad); a resumed run seeks the source to its first
             # chunk
@@ -823,27 +635,15 @@ class StreamRunner:
                 else:
                     source.seek(in_base)
             reader = RollingReader(
-                timed_read(_read_fn(source, int_in), timings, job), C,
-                dtype=np.int32 if int_in else np.float32,
+                timed_read(_read_fn(source), timings, job), C,
                 left_pad=max(0, -in_base), base=in_base,
                 block=eng.emit_len)
 
         def consume_host(ready, mat):
-            """Writer-thread half: decode the payload (the C++ wire decode
-            releases the interpreter lock) and route it via the shared
+            """Writer-thread half: route the payload via the shared
             SinkState."""
-            c_frame0, c_nf, rb, c_out_dev, c_eng = ready
-            if wire:
-                from tomatis_tpu_torch.io import wirecodec
-                aux, words = mat
-                # decode_offload is set with the producer, before the
-                # first chunk is consumed
-                payload = (staging.decode_pcm24_offload
-                           if decode_offload else wirecodec.decode_pcm24)(
-                    words.view(np.uint8), c_eng.emit_full, C)
-                self.wire_stats["out_bytes"] += rb.used_bytes
-            else:
-                payload, aux = mat
+            c_frame0, c_nf, _rb, c_out_dev, c_eng = ready
+            payload, aux = mat
             sink.route(self, c_eng, c_frame0, c_nf, payload, aux,
                        c_out_dev, rows_out, write, byte_payload)
 
@@ -871,90 +671,42 @@ class StreamRunner:
                 frames_consumed=int(frame0))
             ckpt.maybe_save(state, force=True)
 
-        # Producer: the file read (a FLAC decode) and, with wire_input,
-        # the C++ wire encode of chunk k+1 run while chunk k is uploaded
-        # and dispatched. Exceptions surface on this thread at the next
-        # get. Writer: once this thread has waited a chunk's readback
-        # out, the host-only half (wire decode, CSV rows, flush-cut drain,
-        # file write with its FLAC encode) runs on the ordered worker, so
-        # on_frames/on_audio/on_progress run there. Jobs run strictly in
-        # order; the checkpoint and final-flush paths join the queue
-        # first, so everything they read is fully drained. Both are made
-        # inside the try whose finally closes them.
+        # Producer: the file read (a FLAC decode) of chunk k+1 runs while
+        # chunk k is uploaded and dispatched. Exceptions surface on this
+        # thread at the next get. Writer: once this thread has waited a
+        # chunk's readback out, the host-only half (CSV rows, flush-cut
+        # drain, file write with its FLAC encode) runs on the ordered
+        # worker, so on_frames/on_audio/on_progress run there. Jobs run
+        # strictly in order; the checkpoint and final-flush paths join the
+        # queue first, so everything they read is fully drained. Both are
+        # made inside the try whose finally closes them.
         def produce(f0):
             # chunk sizes must track the main loop exactly; _chunk_F is a
             # pure function of the frame cursor, so both sides agree
             while f0 < n_frames:
                 e_i = self._by_F[self._chunk_F(f0)][0]
                 sig = reader.window(-pad + f0 * hop, e_i.chunk_input_len)
-                item = stage_encode(sig, int_in, self.wire_input)
                 f0 += min(e_i.frames_per_chunk, n_frames - f0)
                 if f0 < n_frames:
                     reader.advance(-pad + f0 * hop)
-                yield item, e_i
-
-        def start_producer():
-            """Input staging: a separate PROCESS when the source is a
-            wire-encodable file long enough for the worker's one-time
-            spawn to amortise (> 8 chunks; it persists across runs of one
-            parent process); the thread producer for arrays, the raw
-            transports, short files, TOMATIS_PROCESS_STAGE=0 and any
-            failure to start the process (as in the reference). Returns
-            (prefetch, decode_offload)."""
-            src_path = getattr(source, "path", None)
-            if not (self.wire_input and src_path
-                    and not isinstance(source, np.ndarray)
-                    and n_frames - frame0 > 8 * F_c
-                    and staging.process_staging_enabled()):
-                return Prefetcher(produce(frame0)), False
-            sched, e_list = [], []
-            f0s = frame0
-            while f0s < n_frames:
-                e_s = self._by_F[self._chunk_F(f0s)][0]
-                ws = -pad + f0s * hop
-                f0s += min(e_s.frames_per_chunk, n_frames - f0s)
-                sched.append((ws, e_s.chunk_input_len,
-                              (-pad + f0s * hop) if f0s < n_frames
-                              else None))
-                e_list.append(e_s)
-            stream = None
-            try:
-                stream = staging.stage_stream(src_path, int_in, C, in_base,
-                                              eng.emit_len, sched,
-                                              WIRE_RICE_IN)
-                # the consume side's wire decode rides a worker process
-                # too (its spawn overlaps the first chunks; local decode
-                # on any trouble)
-                staging.ensure_rpc_worker()
-            except Exception:
-                # a stream already opened must not keep the singleton busy
-                if stream is not None:
-                    stream.close()
-                return Prefetcher(produce(frame0)), False
-            return _ProcessPrefetch(stream, e_list), True
+                yield sig
 
         def next_staged(at):
             with span("stream.input", "input_host_s", at):
                 with span("stream.producer_wait", "producer_wait_s"):
-                    item, e_i = prefetch.get()
+                    sig = prefetch.get()
                 with span("stream.upload"):
-                    return stage_to_device(item, e_i.chunk_input_len, C,
-                                           self.wire_stats, dev)
+                    return stage_to_device(sig, dev)
 
         # Software pipeline, depth 3. Per iteration k:
         #   dispatch chunk k                (async; input staged last iter)
         #   S1 on chunk k-1: wait its compute, start the readback
-        #   S2 on chunk k-2: (wire) read `used`, fetch the stream
         #   stage input k+1                 (producer wait + upload)
         #   S3 on chunk k-3: wait the copies (long since done), hand the
         #                    host half to the ordered writer thread
-        # The device executes in enqueue order on one stream, so chunk
-        # k's step is enqueued before chunk k+1's input unpack.
+        # S2 has nothing to fetch: the readback is whole after S1.
         chunks = 0
         staged = None
-
-        def pipe_start(ck):
-            ck["ready"][2].start_stream()
 
         def pipe_finish(ck):
             at = ck["ready"][0]
@@ -975,16 +727,14 @@ class StreamRunner:
             with span("stream.backpressure"):
                 writer.check(join=True)
 
-        pipe = StagedPipeline(pipe_start, pipe_finish)
+        pipe = StagedPipeline(lambda ck: None, pipe_finish)
 
         last_full = False
         writer = prefetch = None
-        decode_offload = False
         try:
             with span("stream.setup", "runner_setup_s"):
                 writer = OrderedWorker()
-                prefetch, decode_offload = start_producer()
-            producer = "process" if decode_offload else "thread"
+                prefetch = Prefetcher(produce(frame0))
             while frame0 < n_frames:
                 eng_i, fn_i = self._by_F[self._chunk_F(frame0)]
                 nf = min(eng_i.frames_per_chunk, n_frames - frame0)
@@ -1008,8 +758,7 @@ class StreamRunner:
                          w_tail) = fn_i(staged, nf, ctl_carry, out_tail,
                                         w_tail, self.ctl_params,
                                         self.gain_f32)
-                        rb = (ChunkReadback([aux], stream=payload) if wire
-                              else ChunkReadback([payload, aux]))
+                        rb = ChunkReadback([payload, aux])
                     pipe.push((frame0, nf, rb, out_dev, eng_i), rb)
                     # promote older chunks one pipeline stage each (oldest
                     # first, capped at S2; S3 is the retire step below)
@@ -1055,8 +804,6 @@ class StreamRunner:
             c2_ratio=sc_[2] / total_f if total_f else 0.0,
             chunks=chunks,
             timings={k: round(v, 4) for k, v in timings.items()},
-            wire=dict(self.wire_stats),
-            producer=producer,
             job_id=job,
         )
         return self.stats
@@ -1066,7 +813,7 @@ class StreamRunner:
         """Write out every flush cut whose samples are fully available.
         Mutates the pending lists in place; returns (cut_i, out_base)."""
         plan = self.plan
-        pcm24 = self.transport in ("pcm24", "wire")
+        pcm24 = self.transport == "pcm24"
         unit = self.engine.channels * 3 if pcm24 else 1
         hop = self.engine.hop
         while cut_i < len(plan.cuts):

@@ -91,7 +91,7 @@ class AudioFile:
     @property
     def int24_readable(self) -> bool:
         """True when the source can be read losslessly as int32 samples at
-        PCM_24 scale (the engine's wire input path skips floats then)."""
+        PCM_24 scale (the EQ appliers and convert then skip floats)."""
         return bool(getattr(self._h, "int24_readable", False))
 
     def read_int24(self, n_frames: int = -1) -> np.ndarray:

@@ -1,13 +1,12 @@
 """Host-side wire codec bindings (native C++ with numpy fallback), port of
-tomatis_tpu/io/wirecodec.py. Imports no torch: the staging worker process
-loads it.
+tomatis_tpu/io/wirecodec.py. Imports no torch.
 
 The wire format (see ops/wire.py) compresses PCM_24 audio
-losslessly for the host<->device link. This module gives the engine a fast
-host half:
+losslessly for the host<->device link. This module gives the wire batch
+(parallel/batch.py) a fast host half:
 
     encode_f32(x [n, ch] float32) -> packed uint8 array, or None when the
-        floats are not exactly PCM_24 (the engine then falls back to raw
+        floats are not exactly PCM_24 (the batch then falls back to raw
         float32 transport so non-24-bit sources stay bit-exact).
     decode_pcm24(buf, n, ch) -> interleaved little-endian 3-byte PCM
         (exactly the engine's pcm24 payload layout).

@@ -29,7 +29,6 @@ import torch
 from tomatis_tpu_torch.engine.streaming import (ChunkedStftEngine,
                                                 ChunkReadback, _encode_pcm24,
                                                 _host, resolve_transport,
-                                                stage_encode,
                                                 stage_to_device)
 from tomatis_tpu_torch.io import audio
 from tomatis_tpu_torch.models.controllers import StaticGainController
@@ -213,8 +212,7 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
         fout, actual_out, ckpt, resume, stage_path = open_checkpointed_sink(
             out_path, sr, ch, config, checkpoint_path, checkpoint_every)
         try:
-            # "auto" on the port is pcm24 on a raw sink, f32 otherwise; the
-            # input ships uncompressed, as on every transport but wire
+            # "auto" on the port is pcm24 on a raw sink, f32 otherwise
             transport, raw = resolve_transport("auto", fout.supports_raw)
             engine = ChunkedStftEngine(n_fft, hop, ch, frames_per_chunk,
                                        device=dev)
@@ -278,8 +276,7 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
 
             def produce(f0):
                 for f in range(f0, F, frames_per_chunk):
-                    yield stage_encode(reader.window(f * hop, need), int_in,
-                                       wire_input=False)
+                    yield reader.window(f * hop, need)
                     if f + frames_per_chunk < F:
                         reader.advance((f + frames_per_chunk) * hop)
 
@@ -301,7 +298,7 @@ def apply_gain_stream(in_path, out_path, gain_bins: np.ndarray,
             prefetch = Prefetcher(produce(f0_start))
 
             def next_staged():
-                return stage_to_device(prefetch.get(), need, ch, None, dev)
+                return stage_to_device(prefetch.get(), dev)
 
             def pipe_finish(ck):
                 mat = ck["ready"][2].materialize()

@@ -82,11 +82,8 @@ def make_runner(p: StandardParams, sr: int, channels: int, total: int,
                                device=dev)
     ctl = (build_controller(p, sr, dev) if controller is None
            else controller.to(dev))
-    # wire_input follows the transport: pcm24/f32 exist to bypass the
-    # codec, so they ship the input uncompressed too
     return StreamRunner(engine, ctl, total, output_gain_db=p.output_gain_db,
-                        transport=transport,
-                        wire_input=(transport == "wire"))
+                        transport=transport)
 
 
 def process_array(x: np.ndarray, sr: int, p: StandardParams | None = None,
@@ -94,9 +91,9 @@ def process_array(x: np.ndarray, sr: int, p: StandardParams | None = None,
                   transport: str = "f32", controller=None):
     """In-memory processing: returns (y [N, C] float32, stats dict).
 
-    Same math as process() without file I/O. transport="pcm24" (or
-    "wire") runs the file path's device quantise and returns the PCM_24
-    samples as floats.
+    Same math as process() without file I/O. transport="pcm24" runs the
+    file path's device quantise and returns the PCM_24 samples as floats;
+    "f32" and "pcm24" are the transports.
     """
     p = p or StandardParams()
     x = np.asarray(x, np.float32)
@@ -114,7 +111,7 @@ def run_array(build_runner, x: np.ndarray, transport: str):
     the collected output are spans of the run's job, timed into
     stats["timings"] beside the stream's own stages: runner_setup_s
     (stream.setup), and output_decode_s (array.collect: the join of the
-    flushes and, for pcm24 and wire, the numpy PCM_24 decode)."""
+    flushes and, for pcm24, the numpy PCM_24 decode)."""
     job, pre = trace.new_job(), {}
     with trace.span("stream.setup", pre, "runner_setup_s", job=job):
         runner = build_runner()
@@ -123,7 +120,7 @@ def run_array(build_runner, x: np.ndarray, transport: str):
     if not outs:
         return np.zeros_like(x), stats
     with trace.span("array.collect", pre, "output_decode_s", job=job):
-        if transport in ("pcm24", "wire"):
+        if transport == "pcm24":
             v = i32_from_le24(np.concatenate(outs))
             y = (v.astype(np.float32) / 8388608.0).reshape(-1, x.shape[1])
         else:
@@ -193,7 +190,7 @@ def process_file(in_path, out_path, p, model: str, build_runner,
                 raise ValueError(f"expected stereo, got {ch} channels")
         out_path = str(out_path)
         # The fingerprint holds the RESOLVED transport (the persisted
-        # pending output is PCM bytes under wire/pcm24 but float samples
+        # pending output is PCM bytes under pcm24 but float samples
         # under f32; an --transport auto checkpoint resumes under an
         # explicit --transport pcm24, the same resolved value), in_path (a checkpoint must not resume against another file
         # of the same shape) and the chunk schedule switch (chunk

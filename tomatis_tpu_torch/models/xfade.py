@@ -75,9 +75,7 @@ def make_runner(p: XfadeParams, sr: int, channels: int, total: int,
                                device=dev)
     ctl = (build_controller(p, sr, dev) if controller is None
            else controller.to(dev))
-    # wire_input follows the transport, as in the standard processor
-    return StreamRunner(engine, ctl, total, transport=transport,
-                        wire_input=(transport == "wire"))
+    return StreamRunner(engine, ctl, total, transport=transport)
 
 
 def process_array(x: np.ndarray, sr: int, p: XfadeParams | None = None,

@@ -1,7 +1,7 @@
 """ops of the PyTorch port (mirrors tomatis_tpu/ops/).
 
-dsp, gate and stft import torch and resolve at first touch: the staging
-worker imports ops.wire, which must leave torch out.
+dsp, gate and stft import torch and resolve at first touch, so that
+importing the package, or the torch-free ops.wire, leaves torch out.
 """
 from tomatis_tpu_torch._lazy import lazy_getattr
 

@@ -36,8 +36,7 @@ bit: numpy (oracle + fallback, this file, a copy of the reference's),
 C++ (csrc/wire.cpp, the production host side, a copy too), and torch ops
 on a tensor of any device (pack_device / unpack_device below, the
 production device side). torch is imported inside those two functions
-only: the numpy half is loaded by the staging worker process, which must
-stay torch-free.
+only, so the numpy half imports no torch.
 
 What the device half does NOT carry over from the reference: the 1 MB
 output pages and 64 KB tail buckets (they bound the count of compiled

@@ -40,16 +40,18 @@ streams (whole u32 words) go into ONE pinned int32 buffer behind a header
 of 2*B words (n_valid, active): one upload per batch chunk. The device
 unpacks each lane at its offset (the host knows it from staging). A chunk
 in which some lane is not PCM_24-exact ships the lanes' raw floats
-instead, as the pcm24 batch does. Output: the batched step packs each
-lane's PCM_24 ints on the device, and the active lanes' used words are
-compacted into one flat stream at exclusive-cumsum offsets. S1 reads aux
-and used [B], S2 fetches flat[:total], and each lane's writer thread
-decodes its slice with the native codec before routing it. Every file's
-bytes are the pcm24 batch's. LAST_WIRE holds the link bytes of the last
-wire call. The codec stays in this process on long batches too: the
-reference's RPC worker past 8 chunks (engine/staging.py) made a
-10-minute lane 2.2 s slower on an H100 host, each call's window pickled
-through a pipe.
+instead, as the pcm24 batch does. Output: each lane's PCM_24 bytes from
+the batched pcm24 step are packed on the device, and the active lanes'
+used words are compacted into one flat stream at exclusive-cumsum
+offsets. S1 reads aux and used [B], S2 fetches flat[:total], and each
+lane's writer thread decodes its slice with the native codec before
+routing it. Every file's bytes are the pcm24 batch's. LAST_WIRE holds
+the link bytes of the last wire call. The codec stays in this process on
+long batches too: the reference's RPC worker past 8 chunks (its
+engine/staging.py) made a 10-minute lane 2.2 s slower on an H100 host,
+each call's window pickled through a pipe. This module is the port's only user of the wire codec
+(ops/wire.py, io/wirecodec.py): the rice policy and the packing of the
+chunk tail's bytes live here.
 
 Not carried over: `_VCHUNK_CACHE`, `_VSTEP_CACHE`, `_FLAT_GRID` with
 `_flat_canonical`'s padding to a canonical shape, and the 1 MB page rows
@@ -60,18 +62,16 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from tomatis_tpu_torch.engine.streaming import (WIRE_RICE_IN,
-                                                ChunkedStftEngine,
+from tomatis_tpu_torch.engine.streaming import (ChunkedStftEngine,
                                                 ChunkReadback, SinkState,
-                                                StreamRunner,
-                                                probe_d2h_mbps,
-                                                resolve_rice_out,
-                                                stage_encode, timed_read,
+                                                StreamRunner, timed_read,
                                                 timed_sink)
 from tomatis_tpu_torch.io import audio, wirecodec
 from tomatis_tpu_torch.ops import wire as wire_ops
@@ -105,6 +105,96 @@ LAST_WIRE: dict = {}
 # over three calls, crossovers of 469-1159 MB/s; the lowest, rounded
 # down, is taken. That card's PCIe link read back 38 GB/s.
 WIRE_BATCH_LINK_MBPS = 450.0
+
+# Static rice switches of the wire codec, one per link DIRECTION (the
+# per-block rice mode is a stream property; encoder and decoder of each
+# direction pair by construction, and the host decoders accept either
+# stream). Rice saves a few percent of link bytes on program material and
+# costs device time on both halves:
+# - input (host C++ encode -> device unpack): OFF, as in the reference.
+# - output (device pack -> host C++ decode): by the measured link.
+#   resolve_rice_out() probes the device->host rate once; the
+#   TOMATIS_WIRE_RICE_OUT env var forces 0/1.
+WIRE_RICE_IN = False
+WIRE_RICE_OUT = False
+
+# Device->host rate below which rice-out pays: the bytes rice saves per
+# chunk over the extra device time of the rice pack. chip_smoke.py reads
+# both at the production chunk on an H100 80GB HBM3 (700 W): 0.371 MB
+# saved for 16.6 ms more pack time, so the break-even is about 22 MB/s
+# (PERF.md). A PCIe link is three orders of magnitude above it.
+RICE_OUT_BW_THRESHOLD_MBPS = 22.0
+
+_RICE_OUT_MEMO: dict = {}
+
+
+def probe_d2h_mbps(mb: float = 4.0, fresh: bool = False,
+                   device="cuda") -> float:
+    """One-shot device->host bandwidth estimate in MB/s (memoised per
+    process): time the copy of a device tensor of `mb` MB into pinned
+    memory. `fresh=True` bypasses and refreshes the memo. Raises without
+    a CUDA device: there is no link to measure."""
+    if not fresh and "bw" in _RICE_OUT_MEMO:
+        return _RICE_OUT_MEMO["bw"]
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("probe_d2h_mbps needs a CUDA device")
+    n = int(mb * 1e6 / 4)
+    a = torch.arange(n, dtype=torch.float32, device=dev) + 1.0
+    host = torch.empty(n, dtype=torch.float32, pin_memory=True)
+    host.copy_(a)                                # warm the path
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    host.copy_(a, non_blocking=True)
+    torch.cuda.synchronize(dev)
+    bw = host.numel() * 4 / 1e6 / max(time.perf_counter() - t0, 1e-9)
+    _RICE_OUT_MEMO["bw"] = bw
+    return bw
+
+
+def resolve_rice_out(device="cuda") -> bool:
+    """The wire output's rice policy: env force (TOMATIS_WIRE_RICE_OUT=0/1)
+    or, by default, one memoised d2h bandwidth probe against
+    RICE_OUT_BW_THRESHOLD_MBPS. A CPU device has no link: the module
+    default."""
+    env = os.environ.get("TOMATIS_WIRE_RICE_OUT", "auto")
+    if env in ("0", "1"):
+        return env == "1"
+    if "choice" not in _RICE_OUT_MEMO:
+        if torch.device(device).type != "cuda":
+            return WIRE_RICE_OUT
+        _RICE_OUT_MEMO["choice"] = (probe_d2h_mbps(device=device)
+                                    < RICE_OUT_BW_THRESHOLD_MBPS)
+    return _RICE_OUT_MEMO["choice"]
+
+
+def host_encode(sig: np.ndarray):
+    """Host half of a lane's input staging (no torch calls; the C++
+    codec releases the interpreter lock): ("wire", stream) when the float
+    window is PCM_24-exact, else ("raw_inexact", sig), which ships as
+    floats."""
+    packed = wirecodec.encode_f32(sig, rice=WIRE_RICE_IN)
+    return ("raw_inexact", sig) if packed is None else ("wire", packed)
+
+
+def _pack_pcm24(pcm, C: int, rice: bool):
+    """The chunk tail's PCM_24 bytes [n*C*3] -> wire_ops.pack_device's
+    (words, used). The bytes are sign-extended, so the pack sees exactly
+    the ints the pcm24 transport ships."""
+    b = pcm.view(-1, 3)
+    v = (b[:, 0].to(torch.int32)
+         | (b[:, 1].to(torch.int32) << 8)
+         | (b[:, 2].view(torch.int8).to(torch.int32) << 16)).reshape(-1, C)
+    return wire_ops.pack_device(v, v.shape[0], C, rice=rice)
+
+
+def _pack_lanes(pcm, C: int, rice: bool):
+    """The batched step's PCM_24 bytes [B, n*C*3], each lane packed by
+    _pack_pcm24 (the counterpart of the reference's vmapped pack) ->
+    (words int32 [B, max_words], used int32 [B])."""
+    packed = [_pack_pcm24(row, C, rice) for row in pcm]
+    return (torch.stack([w for w, _ in packed]),
+            torch.stack([u for _, u in packed]))
 
 
 class _Lane:
@@ -402,10 +492,8 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
                                     device=dv)
             ctl = build_controller(p, sr, dv)
             steps[str(dv)] = dict(engine=eng, ctl=ctl,
-                                  fn=eng.make_batch_chunk_fn(
-                                      ctl, transport=transport,
-                                      rice_out=resolve_rice_out(dv)
-                                      if wire else None))
+                                  fn=eng.make_batch_chunk_fn(ctl),
+                                  rice=wire and resolve_rice_out(dv))
     engine, controller = (steps[str(blocks[0])][k] for k in ("engine",
                                                              "ctl"))
 
@@ -450,10 +538,10 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
         (window, tagged item)."""
         win = lane.rolling.window(start, L)
         lane.rolling.advance(start + nf * hop)
-        return win, stage_encode(win, False)
+        return win, host_encode(win)
 
     # an idle lane's wire stream: all zeros, the same for every chunk
-    zero_stream = (stage_encode(np.zeros((L, ch), np.float32), False)[1]
+    zero_stream = (host_encode(np.zeros((L, ch), np.float32))[1]
                    if wire else None)
 
     def produce():
@@ -689,7 +777,8 @@ def process_batch(jobs, params=None, frames_per_chunk: int = 1024,
                         w_tail_b[k], params[k], gains[k])
                     timings["block_launches"][k] += 1
                     if wire:
-                        words, used = payload
+                        words, used = _pack_lanes(payload, ch,
+                                                  steps[str(dv)]["rice"])
                         fetch.append((dv, [aux, used],
                                       _flatten_words(words, used, act_d)))
                     else:

@@ -2,14 +2,15 @@
 tomatis_tpu/utils/pipeline.py (torch-free: the device half of a stage
 lives in the handle the caller pushes).
 
-Three primitives shared by engine/streaming.py and models/eq.py:
+Three primitives shared by engine/streaming.py, models/eq.py and
+parallel/batch.py:
 
 - Prefetcher: runs a generator on a daemon thread with a bounded buffer
-  (input staging: file read, FLAC decode and C++ wire encode overlap the
-  device and the output side).
+  (input staging: file read and FLAC decode overlap the device and the
+  output side).
 - OrderedWorker: a single background worker executing submitted jobs
-  strictly in order (output side: wire decode + drain + file write and
-  FLAC encode overlap the next chunks).
+  strictly in order (output side: drain + file write and FLAC encode
+  overlap the next chunks).
 - StagedPipeline: the depth-3 in-flight chunk stage machine the stream
   loops run their device round trips through.
 
@@ -36,8 +37,9 @@ class StagedPipeline:
           and ``wait_arr.copy_to_host_async()`` (a non-blocking copy into
           pinned memory). A ``wait_arr`` without those methods (a host
           array) passes through;
-      S2  read the small readback and issue the fetch of the variable-size
-          wire stream (``start(chunk)`` -> opaque fetch state);
+      S2  read the small readback and issue the fetch of a variable-size
+          stream, such as the wire batch's (``start(chunk)`` -> opaque
+          fetch state);
       S3  wait the copies out and hand the host half off
           (``finish(chunk)``).
 
