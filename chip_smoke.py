@@ -87,7 +87,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
     stages, wall and peak device memory;
 16. the threaded pipeline, measured: phase 15's stage timers and wall
     beside this script's own timing of decoding the whole input and of
-    encoding the whole output alone and the array run's stream stages;
+    encoding the whole output alone and the array run's stream stages,
+    and the encoder's microseconds per 4096-frame block on one thread
+    (a child process whose affinity is one CPU: no helper threads);
     the same for apply_eq on that FLAC; peak device memory with three
     chunks in flight;
 17. convert: FLAC -> WAV -> FLAC through the int24 copy keeps every
@@ -1279,6 +1281,45 @@ def codecs_alone(audio, in_path: str, out_path: str, tmp: str,
     return decode_s, encode_s
 
 
+# One-thread FLAC encode of a PCM_24 FLAC's samples, in a child process
+# whose affinity is one CPU (set before the encoder reads its budget, so it
+# starts no helper): argv is the tree whose package encodes, the FLAC and
+# a scratch directory. Prints the helper budget, the full blocks and the
+# seconds of each of three encodes.
+ONE_THREAD_ENCODE = r"""
+import os, sys, time
+os.sched_setaffinity(0, {min(os.sched_getaffinity(0))})
+sys.path.insert(0, sys.argv[1])
+from tomatis_tpu_torch.io import audio, flac
+from tomatis_tpu_torch.utils.pcm import le24_from_i32
+with audio.AudioFile(sys.argv[2], "r") as f:
+    sr, ch = f.samplerate, f.channels
+    raw = le24_from_i32(f.read_int24().reshape(-1))
+secs = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    with flac.FlacWriter(os.path.join(sys.argv[3], "one_thread.flac"), sr,
+                         ch, "PCM_24") as w:
+        w.write_raw(raw)
+    secs.append(time.perf_counter() - t0)
+print(flac.encoder_threads(), len(raw) // (3 * ch * flac.BLOCK),
+      *secs)
+"""
+
+
+def one_thread_encode_us(root: str, flac_path: str, tmp: str) -> list:
+    """Microseconds per 4096-frame block of the package under `root`
+    encoding flac_path's samples on one thread, three encodes."""
+    p = subprocess.run([sys.executable, "-c", ONE_THREAD_ENCODE, root,
+                        flac_path, tmp], capture_output=True, text=True)
+    if p.returncode != 0:
+        fail(f"one-thread encode under {root}: {p.stderr[-2000:]}")
+    threads, blocks, *secs = p.stdout.split()
+    if int(threads) != 0:
+        fail(f"one-thread encode: a helper budget of {threads} on one CPU")
+    return [float(t) / int(blocks) * 1e6 for t in secs]
+
+
 def thread_paths(torch, cuda_ola, audio, standard, eq, x, stream_alone_s,
                  tmp) -> dict:
     """Phases 15 to 17. x: the long programme; stream_alone_s: the stage
@@ -1316,6 +1357,12 @@ def thread_paths(torch, cuda_ola, audio, standard, eq, x, stream_alone_s,
 
     # -- 16. the threaded pipeline, measured ---------------------------------
     dec_s, enc_s = codecs_alone(audio, lip, lop, tmp, 1024 * 2048, False)
+    block_us = one_thread_encode_us(os.path.dirname(os.path.abspath(__file__)),
+                                    lop, tmp)
+    log(f"FLAC encoder alone, the long PCM_24 output: {enc_s:.3f} s on the "
+        f"encoder's threads; one thread (affinity one CPU, no helper) "
+        f"{', '.join(f'{u:.1f}' for u in block_us)} us per 4096-frame block "
+        f"(three encodes)")
     t = sp["timings"]
     stages = sum(t.values())
     overlap_s = dec_s + enc_s + stream_alone_s - sp["wall_seconds"]

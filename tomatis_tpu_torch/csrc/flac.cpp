@@ -21,7 +21,15 @@
 // bytes are a function of its samples and frame number alone, so a write
 // of two or more full blocks makes them on several threads (a budget for
 // the process, its usable CPUs) and writes them in order: the file's bytes
-// are those of the one-thread encoder.
+// are those of the one-thread encoder. A frame is made in one thread's
+// reused scratch: the CRCs from tables (CRC-16 eight bytes a step), the
+// channel costs of every stereo assignment and of every fixed order in one
+// pass each, the LPC autocorrelation's lags in one pass over the block with
+// each lag's sum rounded as a pass per lag rounds it, the LPC residual
+// specialised by order, and the bits written a 64-bit word at a time.
+// Every stage computes what a pass per lag, per order and per channel
+// computes, so the bytes stay those of the JAX package's encoder
+// (tomatis_tpu/native/flac.cpp).
 //
 // Build: g++ -O2 -shared -fPIC -pthread flac.cpp -o libtomatisflac.so
 
@@ -46,20 +54,45 @@
 namespace {
 
 // ---------------------------------------------------------------- CRC
+// From tables made from the polynomials at compile time: CRC-8 (0x07) a
+// byte at a time, CRC-16 (0x8005) eight bytes a step (slicing by 8:
+// t16[s][b] is byte b's CRC followed by s zero bytes, so a step's eight
+// lookups XOR to the CRC of the register and the eight bytes).
+struct CrcTables {
+    uint8_t t8[256] = {};
+    uint16_t t16[8][256] = {};
+    constexpr CrcTables() {
+        for (int b = 0; b < 256; b++) {
+            uint8_t c = (uint8_t)b;
+            uint16_t d = (uint16_t)(b << 8);
+            for (int k = 0; k < 8; k++) {
+                c = (c & 0x80) ? (uint8_t)((c << 1) ^ 0x07) : (uint8_t)(c << 1);
+                d = (d & 0x8000) ? (uint16_t)((d << 1) ^ 0x8005) : (uint16_t)(d << 1);
+            }
+            t8[b] = c;
+            t16[0][b] = d;
+        }
+        for (int s = 1; s < 8; s++)
+            for (int b = 0; b < 256; b++) {
+                uint16_t p = t16[s - 1][b];
+                t16[s][b] = (uint16_t)(p << 8) ^ t16[0][p >> 8];
+            }
+    }
+};
+constexpr CrcTables CRC;
+
 uint8_t crc8(const uint8_t* d, size_t n) {
     uint8_t c = 0;
-    for (size_t i = 0; i < n; i++) {
-        c ^= d[i];
-        for (int b = 0; b < 8; b++) c = (c & 0x80) ? (uint8_t)((c << 1) ^ 0x07) : (uint8_t)(c << 1);
-    }
+    for (size_t i = 0; i < n; i++) c = CRC.t8[c ^ d[i]];
     return c;
 }
 uint16_t crc16(const uint8_t* d, size_t n) {
+    const auto& t = CRC.t16;
     uint16_t c = 0;
-    for (size_t i = 0; i < n; i++) {
-        c ^= (uint16_t)d[i] << 8;
-        for (int b = 0; b < 8; b++) c = (c & 0x8000) ? (uint16_t)((c << 1) ^ 0x8005) : (uint16_t)(c << 1);
-    }
+    for (; n >= 8; n -= 8, d += 8)
+        c = t[7][d[0] ^ (c >> 8)] ^ t[6][d[1] ^ (c & 0xFF)] ^ t[5][d[2]] ^
+            t[4][d[3]] ^ t[3][d[4]] ^ t[2][d[5]] ^ t[1][d[6]] ^ t[0][d[7]];
+    for (; n; n--, d++) c = (uint16_t)(c << 8) ^ t[0][(c >> 8) ^ *d];
     return c;
 }
 
@@ -123,44 +156,58 @@ struct BitReader {
 };
 
 // ---------------------------------------------------------------- bit writer
-struct BitWriter {
-    std::vector<uint8_t> buf;
+// MSB first. The bits not yet stored are the top `used` (< 8 between puts)
+// of `acc`, zeros below them; a put adds its bits under them, stores the
+// eight bytes of `acc` where the stream has got to and moves on by the whole
+// bytes, with no branch on the bit count. The buffer is kept from frame to
+// frame, with room for an 8-byte store past the stream's end.
+struct BitState {
+    size_t len = 0;      // whole bytes stored
     uint64_t acc = 0;
-    int nacc = 0;
+    int used = 0;
 
-    BitWriter() { buf.reserve(1 << 16); }
+    // the n low bits of v, v < 2^n, 1 <= n <= 56, into out (room for len + 8)
+    void put(uint8_t* out, uint64_t v, int n) {
+        acc |= v << (64 - used - n);
+        used += n;
+        uint64_t be = __builtin_bswap64(acc);
+        memcpy(out + len, &be, 8);
+        len += used >> 3;
+        acc <<= used & ~7;
+        used &= 7;
+    }
+};
 
-    void bits(uint32_t v, int n) {
-        acc = (acc << n) | (uint64_t)(v & ((n == 32) ? 0xFFFFFFFFu : ((1u << n) - 1)));
-        nacc += n;
-        if (nacc >= 32) {  // flush four bytes at once
-            uint32_t w = (uint32_t)(acc >> (nacc - 32));
-            size_t s = buf.size();
-            buf.resize(s + 4);
-            buf[s] = (uint8_t)(w >> 24);
-            buf[s + 1] = (uint8_t)(w >> 16);
-            buf[s + 2] = (uint8_t)(w >> 8);
-            buf[s + 3] = (uint8_t)w;
-            nacc -= 32;
-        }
+struct BitWriter {
+    std::vector<uint8_t> buf = std::vector<uint8_t>(1 << 16);
+    BitState st;
+
+    void reset() { st = BitState(); }
+    uint8_t* bytes() { return buf.data(); }
+    size_t len() const { return st.len; }
+    // room for puts that move on by `bytes` more and the last one's store
+    void reserve(size_t bytes) {
+        if (st.len + bytes + 8 > buf.size())
+            buf.resize(std::max(2 * buf.size(), st.len + bytes + 8));
+    }
+
+    void put(uint64_t v, int n) {  // v < 2^n, 1 <= n <= 56
+        reserve(0);
+        st.put(buf.data(), v, n);
+    }
+    void bits(uint32_t v, int n) {  // 1 <= n <= 32; v's bits above n ignored
+        put(v & (uint32_t)((1ull << n) - 1), n);
     }
     void sbits(int32_t v, int n) { bits((uint32_t)v, n); }
-    void unary(uint32_t q) {
-        while (q >= 32) { bits(0, 32); q -= 32; }
-        bits(1, (int)q + 1);  // q zeros then a 1
-    }
-    void align() {
-        if (nacc & 7) bits(0, 8 - (nacc & 7));
-        while (nacc >= 8) {  // drain whole bytes left in the accumulator
-            buf.push_back((uint8_t)(acc >> (nacc - 8)));
-            nacc -= 8;
-        }
+    void align() {  // zeros to a byte boundary
+        if (st.used) put(0, 8 - st.used);
     }
 };
 
 // ---------------------------------------------------------------- UTF-8 coded numbers
-void utf8_encode(uint64_t v, std::vector<uint8_t>& out) {
-    if (v < 0x80) { out.push_back((uint8_t)v); return; }
+// v's bytes into out (at most 7); returns their count
+int utf8_encode(uint64_t v, uint8_t* out) {
+    if (v < 0x80) { out[0] = (uint8_t)v; return 1; }
     int bytes;
     if (v < 0x800) bytes = 2;
     else if (v < 0x10000) bytes = 3;
@@ -169,9 +216,10 @@ void utf8_encode(uint64_t v, std::vector<uint8_t>& out) {
     else if (v < 0x80000000ull) bytes = 6;
     else bytes = 7;
     static const uint8_t lead[8] = {0, 0, 0xC0, 0xE0, 0xF0, 0xF8, 0xFC, 0xFE};
-    out.push_back((uint8_t)(lead[bytes] | (v >> (6 * (bytes - 1)))));
-    for (int i = bytes - 2; i >= 0; i--)
-        out.push_back((uint8_t)(0x80 | ((v >> (6 * i)) & 0x3F)));
+    out[0] = (uint8_t)(lead[bytes] | (v >> (6 * (bytes - 1))));
+    for (int i = bytes - 2, k = 1; i >= 0; i--, k++)
+        out[k] = (uint8_t)(0x80 | ((v >> (6 * i)) & 0x3F));
+    return bytes;
 }
 
 bool utf8_decode(BitReader& br, uint64_t* out) {
@@ -778,6 +826,17 @@ struct HelperGrant {
 };
 
 // ---------------------------------------------------------------- encoder
+// r + a * b rounded as the compiler contracts `r + a * b`: fused where the
+// target has a fused multiply-add, as -ffp-contract=fast (g++'s default for
+// C++) makes it, else a product and a sum
+inline double mac(double r, double a, double b) {
+#ifdef __FP_FAST_FMA
+    return std::fma(a, b, r);
+#else
+    return r + a * b;
+#endif
+}
+
 struct FlacEncoder {
     FILE* f = nullptr;
     uint32_t sample_rate, channels, bps;
@@ -858,25 +917,19 @@ struct FlacEncoder {
         Source at(size_t i) const {
             return {x ? x + i : nullptr, b24 ? b24 + 3 * i : nullptr};
         }
-        const int32_t* samples(size_t n, std::vector<int32_t>& scratch) const {
-            if (x) return x;
-            scratch.resize(n);
-            unpack_le24(b24, n, scratch.data());
-            return scratch.data();
-        }
     };
 
-    static void unpack_le24(const uint8_t* b, size_t n, int32_t* out) {
-        for (size_t i = 0; i < n; i++, b += 3)
-            out[i] = (int32_t)((uint32_t)b[0] << 8 | (uint32_t)b[1] << 16 |
-                               (uint32_t)b[2] << 24) >> 8;
+    static int32_t le24(const uint8_t* b) {
+        return (int32_t)((uint32_t)b[0] << 8 | (uint32_t)b[1] << 16 |
+                         (uint32_t)b[2] << 24) >> 8;
     }
 
     void append_pend(Source src, size_t n) {
         size_t at = pend.size();
         pend.resize(at + n);
-        if (src.x) memcpy(pend.data() + at, src.x, n * sizeof(int32_t));
-        else unpack_le24(src.b24, n, pend.data() + at);
+        int32_t* out = pend.data() + at;
+        if (src.x) memcpy(out, src.x, n * sizeof(int32_t));
+        else for (size_t i = 0; i < n; i++) out[i] = le24(src.b24 + 3 * i);
     }
 
     // Encode n frames of src. The full blocks' bytes depend only on their
@@ -922,13 +975,10 @@ struct FlacEncoder {
     long make_frames(const std::vector<Source>& blocks,
                      std::vector<std::vector<uint8_t>>& frames) const {
         const long nb = (long)blocks.size();
-        const size_t stride = (size_t)BLOCK * channels;
         std::atomic<long> next{0};
         auto work = [&] {
-            std::vector<int32_t> scratch;
             for (long k; (k = next.fetch_add(1)) < nb;)
-                frames[k] = frame_bytes(blocks[k].samples(stride, scratch),
-                                        BLOCK, frame_no + (uint32_t)k);
+                frame_bytes(blocks[k], BLOCK, frame_no + (uint32_t)k, frames[k]);
         };
         HelperGrant grant((int)std::min<long>(nb - 1, helper_budget()));
         std::vector<std::thread> pool;
@@ -959,20 +1009,11 @@ struct FlacEncoder {
         f = nullptr;
     }
 
-    // cheap proxy for a channel's coding cost: sum |second difference|
-    static unsigned long long diff2_cost(const std::vector<int64_t>& v) {
-        unsigned long long c = 0;
-        for (size_t i = 2; i < v.size(); i++) {
-            long long d = v[i] - 2 * v[i - 1] + v[i - 2];
-            c += (unsigned long long)(d < 0 ? -d : d);
-        }
-        return c;
-    }
-
     void encode_frame(const int32_t* x, uint32_t bsize) {
         // `total` is still this frame's first sample (caller adds after)
         record_seekpoint(bsize);
-        std::vector<uint8_t> b = frame_bytes(x, bsize, frame_no++);
+        std::vector<uint8_t> b;
+        frame_bytes({x, nullptr}, bsize, frame_no++, b);
         fwrite(b.data(), 1, b.size(), f);
     }
 
@@ -985,45 +1026,37 @@ struct FlacEncoder {
         }
     }
 
-    // The bytes of one frame: a function of its samples and its number.
-    std::vector<uint8_t> frame_bytes(const int32_t* x, uint32_t bsize,
-                                     uint32_t fno_value) const {
-        // stereo decorrelation search (ref decoder supports 8=L/S, 9=S/R,
-        // 10=M/S): pick the assignment with the cheapest residual proxy
-        uint32_t ch_asgn = channels - 1;  // independent
-        std::vector<std::vector<int64_t>> sub(channels);
-        std::vector<uint32_t> sub_bps(channels, bps);
-        if (channels == 2) {
-            std::vector<int64_t> l(bsize), r(bsize), m(bsize), s(bsize);
-            for (uint32_t i = 0; i < bsize; i++) {
-                int64_t lv = x[(size_t)i * 2], rv = x[(size_t)i * 2 + 1];
-                l[i] = lv; r[i] = rv;
-                s[i] = lv - rv;
-                m[i] = (lv + rv) >> 1;
-            }
-            unsigned long long cl = diff2_cost(l), cr = diff2_cost(r),
-                               cm = diff2_cost(m), cs = diff2_cost(s);
-            unsigned long long best = cl + cr;
-            ch_asgn = 1;
-            sub[0] = l; sub[1] = r;
-            if (cl + cs < best) { best = cl + cs; ch_asgn = 8;
-                sub[0] = l; sub[1] = s; }
-            if (cs + cr < best) { best = cs + cr; ch_asgn = 9;
-                sub[0] = s; sub[1] = r; }
-            if (cm + cs < best) { best = cm + cs; ch_asgn = 10;
-                sub[0] = std::move(m); sub[1] = std::move(s); }
-            if (ch_asgn == 8 || ch_asgn == 10) sub_bps[1] = bps + 1;
-            if (ch_asgn == 9) sub_bps[0] = bps + 1;
-            if (ch_asgn == 1) { sub[0] = std::move(l); sub[1] = std::move(r); }
-        } else {
-            for (uint32_t c = 0; c < channels; c++) {
-                sub[c].resize(bsize);
-                for (uint32_t i = 0; i < bsize; i++)
-                    sub[c][i] = x[(size_t)i * channels + c];
-            }
-        }
-
+    // A thread's working memory for frame_bytes, kept from frame to frame.
+    struct Scratch {
+        std::vector<int32_t> chan;  // the subframes' samples, one after another
+        std::vector<int32_t> res;   // the LPC trial's residual, or the fixed one's
+        std::vector<double> w;      // the Welch-windowed samples, reversed
+        std::vector<double> welch;  // the Welch window of the last block size
         BitWriter bw;
+    };
+
+    // The bytes of one frame, into out: a function of its samples and its
+    // number. The samples lie within bps bits (FlacWriter clips them), so a
+    // side channel has 25 bits at most and every stage below is exact in
+    // int32 (sums and LPC predictions in 64 bits).
+    void frame_bytes(Source src, uint32_t bsize, uint32_t fno_value,
+                     std::vector<uint8_t>& out) const {
+        static thread_local Scratch s;
+        s.chan.resize((size_t)bsize * channels);
+        s.res.resize(bsize);
+        s.w.resize(bsize + 4);
+        int32_t* sub[8];
+        uint32_t sub_bps[8];
+        for (uint32_t c = 0; c < channels; c++) {
+            sub[c] = s.chan.data() + (size_t)c * bsize;
+            sub_bps[c] = bps;
+            deinterleave(src, c, bsize, sub[c]);
+        }
+        uint32_t ch_asgn = channels - 1;  // independent
+        if (channels == 2) ch_asgn = decorrelate(sub[0], sub[1], bsize, sub_bps);
+
+        BitWriter& bw = s.bw;
+        bw.reset();
         bw.bits(0x3FFE, 14);
         bw.bits(0, 1);
         bw.bits(0, 1);  // fixed blocking
@@ -1037,32 +1070,84 @@ struct FlacEncoder {
         uint32_t ss_bits = bps == 8 ? 1 : bps == 16 ? 4 : bps == 24 ? 6 : 7;
         bw.bits(ss_bits, 3);
         bw.bits(0, 1);
-        std::vector<uint8_t> fno;
-        utf8_encode(fno_value, fno);
-        for (uint8_t b : fno) bw.bits(b, 8);
+        uint8_t fno[8];
+        int nfno = utf8_encode(fno_value, fno);
+        for (int i = 0; i < nfno; i++) bw.bits(fno[i], 8);
         if (bs16) bw.bits(bsize - 1, 16);
         bw.align();
-        bw.bits(crc8(bw.buf.data(), bw.buf.size()), 8);
+        bw.bits(crc8(bw.bytes(), bw.len()), 8);
 
         for (uint32_t c = 0; c < channels; c++)
-            encode_subframe(bw, sub[c], sub_bps[c], bsize);
+            encode_subframe(bw, sub[c], sub_bps[c], bsize, s);
         bw.align();
-        uint16_t c16 = crc16(bw.buf.data(), bw.buf.size());
-        bw.bits(c16, 16);
-        bw.align();  // drain the CRC bytes out of the accumulator
-        return std::move(bw.buf);
+        bw.bits(crc16(bw.bytes(), bw.len()), 16);
+        out.assign(bw.bytes(), bw.bytes() + bw.len());
+    }
+
+    // channel c of the block's bsize frames into dst
+    void deinterleave(Source src, uint32_t c, uint32_t bsize,
+                      int32_t* dst) const {
+        const size_t step = channels;
+        if (src.x) {
+            const int32_t* x = src.x + c;
+            for (uint32_t i = 0; i < bsize; i++) dst[i] = x[i * step];
+        } else {
+            const uint8_t* b = src.b24 + 3 * c;
+            for (uint32_t i = 0; i < bsize; i++) dst[i] = le24(b + 3 * i * step);
+        }
+    }
+
+    // The stereo decorrelation search (the reference decoder takes 8 = L/S,
+    // 9 = S/R, 10 = M/S): an assignment costs the sum of its two channels'
+    // |second difference|, the four channels' sums from one pass over L and
+    // R; the cheapest assignment's channels replace L and R. Returns the
+    // assignment.
+    uint32_t decorrelate(int32_t* l, int32_t* r, uint32_t bsize,
+                         uint32_t* sub_bps) const {
+        unsigned long long cl = 0, cr = 0, cm = 0, cs = 0;
+        for (uint32_t i = 2; i < bsize; i++) {
+            int32_t dl = l[i] - 2 * l[i - 1] + l[i - 2];
+            int32_t dr = r[i] - 2 * r[i - 1] + r[i - 2];
+            int32_t dm = ((l[i] + r[i]) >> 1) - 2 * ((l[i - 1] + r[i - 1]) >> 1)
+                         + ((l[i - 2] + r[i - 2]) >> 1);
+            int32_t ds = dl - dr;
+            cl += (uint32_t)std::abs(dl);
+            cr += (uint32_t)std::abs(dr);
+            cm += (uint32_t)std::abs(dm);
+            cs += (uint32_t)std::abs(ds);
+        }
+        unsigned long long best = cl + cr;
+        uint32_t asgn = 1;
+        if (cl + cs < best) { best = cl + cs; asgn = 8; }
+        if (cs + cr < best) { best = cs + cr; asgn = 9; }
+        if (cm + cs < best) { best = cm + cs; asgn = 10; }
+        if (asgn == 8) {
+            for (uint32_t i = 0; i < bsize; i++) r[i] = l[i] - r[i];
+            sub_bps[1] = bps + 1;
+        } else if (asgn == 9) {
+            for (uint32_t i = 0; i < bsize; i++) l[i] = l[i] - r[i];
+            sub_bps[0] = bps + 1;
+        } else if (asgn == 10) {
+            for (uint32_t i = 0; i < bsize; i++) {
+                int32_t lv = l[i], rv = r[i];
+                l[i] = (lv + rv) >> 1;
+                r[i] = lv - rv;
+            }
+            sub_bps[1] = bps + 1;
+        }
+        return asgn;
     }
 
     // Levinson-Durbin LPC analysis (Welch-windowed autocorrelation).
     // Returns quantized coefficients + shift; order 0 means "LPC not
-    // usable" for this block.
+    // usable" for this block. The residual is the scratch's res.
     struct Lpc {
         int order = 0;
         int shift = 0;
         int32_t q[32];
-        std::vector<int64_t> res;
         unsigned long long bits = ~0ull;  // estimated encoded subframe bits
     };
+    static constexpr int LPC_MAX_ORDER = 12;
 
     // Estimated rice bits for n residuals with |.|-sum s (one partition,
     // same estimator encode_residual uses for partition-order scoring).
@@ -1073,11 +1158,70 @@ struct FlacEncoder {
         return (unsigned long long)n * (k + 1) + ((2 * s) >> k);
     }
 
+    // The order-ORDER LPC residual of x into res[ORDER, n) and its
+    // |.|-sum; false if a residual passes the int32 / 2 range. int32
+    // products summed in int64, as restore_lpc_n restores them.
+    template <int ORDER>
+    static bool lpc_residual(const int32_t* x, uint32_t n, const int32_t* q,
+                             int shift, int32_t* res, unsigned long long& cost) {
+        int64_t c[ORDER];
+        for (int j = 0; j < ORDER; j++) c[j] = q[j];
+        unsigned long long sum = 0;
+        bool bad = false;
+        uint32_t i = ORDER;
+#if defined(__AVX2__)
+        // four residuals at a time, one per 64-bit lane: a product is a
+        // pmuldq (signed 32 x 32 -> 64 bits), the arithmetic shift a logical
+        // one of the sum offset by 2^63, |v| (v ^ s) - s with s its sign
+        const __m256i zero = _mm256_setzero_si256();
+        const __m256i bias = _mm256_set1_epi64x(INT64_MIN);
+        const __m256i unbias = _mm256_set1_epi64x((int64_t)(1ull << (63 - shift)));
+        const __m128i sh = _mm_cvtsi32_si128(shift);
+        const __m256i hi = _mm256_set1_epi64x(INT32_MAX / 2);
+        const __m256i lo = _mm256_set1_epi64x(INT32_MIN / 2);
+        const __m256i low_halves = _mm256_setr_epi32(0, 2, 4, 6, 1, 3, 5, 7);
+        __m256i cv[ORDER];
+        for (int j = 0; j < ORDER; j++) cv[j] = _mm256_set1_epi64x(c[j]);
+        __m256i out_of_range = zero, sums = zero;
+        auto load4 = [](const int32_t* p) {
+            return _mm256_cvtepi32_epi64(_mm_loadu_si128((const __m128i*)p));
+        };
+        for (; i + 4 <= n; i += 4) {
+            __m256i p = zero;
+            for (int j = 0; j < ORDER; j++)
+                p = _mm256_add_epi64(p, _mm256_mul_epi32(cv[j], load4(x + i - 1 - j)));
+            __m256i pred = _mm256_sub_epi64(
+                _mm256_srl_epi64(_mm256_xor_si256(p, bias), sh), unbias);
+            __m256i v = _mm256_sub_epi64(load4(x + i), pred);
+            out_of_range = _mm256_or_si256(out_of_range, _mm256_or_si256(
+                _mm256_cmpgt_epi64(v, hi), _mm256_cmpgt_epi64(lo, v)));
+            _mm_storeu_si128((__m128i*)(res + i), _mm256_castsi256_si128(
+                _mm256_permutevar8x32_epi32(v, low_halves)));
+            __m256i sign = _mm256_cmpgt_epi64(zero, v);
+            sums = _mm256_add_epi64(sums, _mm256_sub_epi64(_mm256_xor_si256(v, sign), sign));
+        }
+        bad = !_mm256_testz_si256(out_of_range, out_of_range);
+        alignas(32) uint64_t lane[4];
+        _mm256_store_si256((__m256i*)lane, sums);
+        sum = lane[0] + lane[1] + lane[2] + lane[3];
+#endif
+        for (; i < n; i++) {
+            int64_t p = 0;
+            for (int j = 0; j < ORDER; j++) p += c[j] * x[i - 1 - j];
+            int64_t v = x[i] - (p >> shift);
+            bad |= v > INT32_MAX / 2 || v < INT32_MIN / 2;
+            res[i] = (int32_t)v;
+            sum += (unsigned long long)(v < 0 ? -v : v);
+        }
+        cost = sum;
+        return !bad;
+    }
+
     // Quantize a double coefficient set and compute the exact residual.
     // Returns false on quantization failure or residual overflow.
-    static bool realize_lpc(const std::vector<int64_t>& x, uint32_t bsize,
+    static bool realize_lpc(const int32_t* x, uint32_t bsize,
                             const double* lpc, int order, uint32_t cbps,
-                            Lpc& out) {
+                            Lpc& out, int32_t* res) {
         double maxc = 0;
         for (int j = 0; j < order; j++)
             if (std::abs(lpc[j]) > maxc) maxc = std::abs(lpc[j]);
@@ -1093,36 +1237,86 @@ struct FlacEncoder {
         }
         out.order = order;
         out.shift = shift;
-        out.res.assign(x.begin(), x.end());
         unsigned long long cost = 0;
-        for (uint32_t i = order; i < bsize; i++) {
-            long long p = 0;
-            for (int j = 0; j < order; j++)
-                p += (long long)out.q[j] * x[i - 1 - j];
-            long long v = x[i] - (p >> shift);
-            if (v > INT32_MAX / 2 || v < INT32_MIN / 2) return false;
-            out.res[i] = v;
-            cost += (unsigned long long)(v < 0 ? -v : v);
+        bool ok = false;
+        switch (order) {
+            case 1: ok = lpc_residual<1>(x, bsize, out.q, shift, res, cost); break;
+            case 2: ok = lpc_residual<2>(x, bsize, out.q, shift, res, cost); break;
+            case 3: ok = lpc_residual<3>(x, bsize, out.q, shift, res, cost); break;
+            case 4: ok = lpc_residual<4>(x, bsize, out.q, shift, res, cost); break;
+            case 5: ok = lpc_residual<5>(x, bsize, out.q, shift, res, cost); break;
+            case 6: ok = lpc_residual<6>(x, bsize, out.q, shift, res, cost); break;
+            case 7: ok = lpc_residual<7>(x, bsize, out.q, shift, res, cost); break;
+            case 8: ok = lpc_residual<8>(x, bsize, out.q, shift, res, cost); break;
+            case 9: ok = lpc_residual<9>(x, bsize, out.q, shift, res, cost); break;
+            case 10: ok = lpc_residual<10>(x, bsize, out.q, shift, res, cost); break;
+            case 11: ok = lpc_residual<11>(x, bsize, out.q, shift, res, cost); break;
+            case 12: ok = lpc_residual<12>(x, bsize, out.q, shift, res, cost); break;
         }
+        if (!ok) return false;
         out.bits = rice_bits_est(cost, bsize - order)
                    + (unsigned long long)order * (cbps + 15) + 17;
         return true;
     }
 
-    static Lpc analyze_lpc(const std::vector<int64_t>& x, uint32_t bsize,
-                           int max_order, uint32_t cbps) {
+    // r[lag], lags 0-12 (13-15 padding), of the Welch-windowed block: r
+    // holds 16 zeros. Each lag's sum adds the same products in the same
+    // order (i rising from the lag) with the same rounding as a pass per
+    // lag, `r[lag] += w[i] * w[i - lag]`, would; here all lags go in one
+    // pass over i.
+    static void autocorrelation(const int32_t* x, uint32_t bsize, Scratch& s,
+                                double* r) {
+        constexpr uint32_t max_order = LPC_MAX_ORDER;
+        // the window, w[i] = x[i] * (1 - t*t), its second factor kept per
+        // block size
+        if (s.welch.size() != bsize) {
+            s.welch.resize(bsize);
+            for (uint32_t i = 0; i < bsize; i++) {
+                double t = ((double)i - (bsize - 1) / 2.0) / ((bsize + 1) / 2.0);
+                s.welch[i] = mac(1.0, -t, t);
+            }
+        }
+        // the windowed samples newest first, wr[bsize - 1 - i] sample i's,
+        // and zeros after: sample i's products with itself and the 12
+        // samples before it pair it with the 16 values from its own place on
+        double* wr = s.w.data();
+        for (uint32_t i = 0; i < bsize; i++)
+            wr[bsize - 1 - i] = (double)x[i] * s.welch[i];
+        std::fill(wr + bsize, wr + bsize + 4, 0.0);
+        for (uint32_t i = 0; i < max_order; i++) {
+            const double* v = wr + (bsize - 1 - i);
+            for (uint32_t lag = 0; lag <= i; lag++) r[lag] = mac(r[lag], v[0], v[lag]);
+        }
+        uint32_t i = max_order;
+#if defined(__AVX2__) && defined(__FMA__)
+        __m256d a0 = _mm256_loadu_pd(r), a1 = _mm256_loadu_pd(r + 4),
+                a2 = _mm256_loadu_pd(r + 8), a3 = _mm256_loadu_pd(r + 12);
+        for (; i < bsize; i++) {
+            const double* v = wr + (bsize - 1 - i);
+            __m256d wi = _mm256_broadcast_sd(v);
+            a0 = _mm256_fmadd_pd(wi, _mm256_loadu_pd(v), a0);
+            a1 = _mm256_fmadd_pd(wi, _mm256_loadu_pd(v + 4), a1);
+            a2 = _mm256_fmadd_pd(wi, _mm256_loadu_pd(v + 8), a2);
+            a3 = _mm256_fmadd_pd(wi, _mm256_loadu_pd(v + 12), a3);
+        }
+        _mm256_storeu_pd(r, a0);
+        _mm256_storeu_pd(r + 4, a1);
+        _mm256_storeu_pd(r + 8, a2);
+        _mm256_storeu_pd(r + 12, a3);
+#endif
+        for (; i < bsize; i++) {
+            const double* v = wr + (bsize - 1 - i);
+            for (int lag = 0; lag < 16; lag++) r[lag] = mac(r[lag], v[0], v[lag]);
+        }
+    }
+
+    static Lpc analyze_lpc(const int32_t* x, uint32_t bsize, uint32_t cbps,
+                           Scratch& s) {
+        constexpr int max_order = LPC_MAX_ORDER;
         Lpc out;
         if ((int)bsize <= max_order * 2) return out;
-        // windowed autocorrelation
-        std::vector<double> w(bsize);
-        for (uint32_t i = 0; i < bsize; i++) {
-            double t = ((double)i - (bsize - 1) / 2.0) / ((bsize + 1) / 2.0);
-            w[i] = (double)x[i] * (1.0 - t * t);   // Welch window
-        }
         double r[33] = {0};
-        for (int lag = 0; lag <= max_order; lag++)
-            for (uint32_t i = lag; i < bsize; i++)
-                r[lag] += w[i] * w[i - lag];
+        autocorrelation(x, bsize, s, r);
         if (r[0] <= 0) return out;
         // Levinson-Durbin with per-order snapshots + prediction error so a
         // bits estimate can pick the order (libFLAC-style order selection)
@@ -1161,47 +1355,78 @@ struct FlacEncoder {
         // fall back one order if quantization/overflow rejects it
         for (int m = best_m; m >= 0 && m > best_m - 2; m--) {
             Lpc trial;
-            if (!realize_lpc(x, bsize, snap[m], m + 1, cbps, trial)) continue;
-            out = std::move(trial);
+            if (!realize_lpc(x, bsize, snap[m], m + 1, cbps, trial,
+                             s.res.data()))
+                continue;
+            out = trial;
             break;
         }
         return out;
     }
 
-    void encode_subframe(BitWriter& bw, const std::vector<int64_t>& ch,
-                         uint32_t cbps, uint32_t bsize) const {
+    // The order-o fixed predictor's residual at i >= o.
+    static int32_t fixed_at(const int32_t* x, uint32_t i, int o) {
+        switch (o) {
+            case 0: return x[i];
+            case 1: return x[i] - x[i - 1];
+            case 2: return x[i] - 2 * x[i - 1] + x[i - 2];
+            case 3: return x[i] - 3 * x[i - 1] + 3 * x[i - 2] - x[i - 3];
+            default: return x[i] - 4 * x[i - 1] + 6 * x[i - 2] - 4 * x[i - 3] + x[i - 4];
+        }
+    }
+
+    // cost[o]: the |.|-sum of the order-o fixed residual over [o, n), all
+    // five orders in one pass (an order-4 residual of 25-bit samples is
+    // under 2^29: none passes the int32 / 2 range the LPC residual checks)
+    static void fixed_costs(const int32_t* x, uint32_t n,
+                            unsigned long long* cost) {
+        for (int o = 0; o < 5; o++) cost[o] = 0;
+        for (uint32_t i = 0; i < n && i < 4; i++)
+            for (int o = 0; o <= (int)i; o++)
+                cost[o] += (uint32_t)std::abs(fixed_at(x, i, o));
+        unsigned long long c0 = 0, c1 = 0, c2 = 0, c3 = 0, c4 = 0;
+        for (uint32_t i = 4; i < n; i++) {
+            int32_t e1 = x[i] - x[i - 1], p1 = x[i - 1] - x[i - 2];
+            int32_t p2 = x[i - 2] - x[i - 3], p3 = x[i - 3] - x[i - 4];
+            int32_t e2 = e1 - p1, q2 = p1 - p2, r2 = p2 - p3;
+            int32_t e3 = e2 - q2, q3 = q2 - r2;
+            int32_t e4 = e3 - q3;
+            c0 += (uint32_t)std::abs(x[i]);
+            c1 += (uint32_t)std::abs(e1);
+            c2 += (uint32_t)std::abs(e2);
+            c3 += (uint32_t)std::abs(e3);
+            c4 += (uint32_t)std::abs(e4);
+        }
+        cost[0] += c0; cost[1] += c1; cost[2] += c2; cost[3] += c3; cost[4] += c4;
+    }
+
+    template <int O>
+    static void fixed_residual_n(const int32_t* x, uint32_t n, int32_t* res) {
+        for (uint32_t i = O; i < n; i++) res[i] = fixed_at(x, i, O);
+    }
+
+    void encode_subframe(BitWriter& bw, const int32_t* ch, uint32_t cbps,
+                         uint32_t bsize, Scratch& s) const {
         // constant?
         bool constant = true;
         for (uint32_t i = 1; i < bsize; i++) if (ch[i] != ch[0]) { constant = false; break; }
         if (constant) {
             bw.bits(0, 1); bw.bits(0, 6); bw.bits(0, 1);
-            bw.sbits((int32_t)ch[0], (int)cbps);
+            bw.sbits(ch[0], (int)cbps);
             return;
         }
         // pick fixed order 0..4 minimizing estimated rice bits
         int max_order = bsize > 4 ? 4 : (int)bsize - 1;
-        std::vector<int64_t> best_res;
+        unsigned long long cost[5];
+        fixed_costs(ch, bsize, cost);
         int best_order = 0;
         unsigned long long best_bits = ~0ull;
-        std::vector<int64_t> res = ch;
         for (int o = 0; o <= max_order; o++) {
-            if (o > 0)
-                for (size_t i = res.size() - 1; i >= (size_t)o; i--)
-                    res[i] -= res[i - 1];
-            unsigned long long cost = 0;
-            bool overflow = false;
-            for (uint32_t i = o; i < bsize; i++) {
-                long long v = res[i];
-                if (v > INT32_MAX / 2 || v < INT32_MIN / 2) { overflow = true; break; }
-                cost += (unsigned long long)(v < 0 ? -v : v);
-            }
-            unsigned long long bits = rice_bits_est(cost, bsize - o)
+            unsigned long long bits = rice_bits_est(cost[o], bsize - o)
                                       + (unsigned long long)o * cbps;
-            // order 0 is always a valid baseline (plain int32 samples)
-            if ((o == 0 || !overflow) && bits < best_bits) {
+            if (bits < best_bits) {
                 best_bits = bits;
                 best_order = o;
-                best_res = res;
             }
         }
         // LPC beats the fixed predictors on most tonal material — but not
@@ -1209,12 +1434,12 @@ struct FlacEncoder {
         // bits/sample, so skip the O(order*n) analysis there
         Lpc lpc;
         if (best_bits > (unsigned long long)bsize * 2)
-            lpc = analyze_lpc(ch, bsize, 12, cbps);
+            lpc = analyze_lpc(ch, bsize, cbps, s);
         unsigned long long verbatim_bits = (unsigned long long)bsize * cbps;
         if (std::min(best_bits, lpc.bits) >= verbatim_bits) {
             bw.bits(0, 1); bw.bits(1, 6); bw.bits(0, 1);  // VERBATIM
             for (uint32_t i = 0; i < bsize; i++)
-                bw.sbits((int32_t)ch[i], (int)cbps);
+                bw.sbits(ch[i], (int)cbps);
             return;
         }
         if (lpc.order > 0 && lpc.bits < best_bits) {
@@ -1222,19 +1447,27 @@ struct FlacEncoder {
             bw.bits(32 | (uint32_t)(lpc.order - 1), 6);  // LPC
             bw.bits(0, 1);                                // no wasted bits
             for (int i = 0; i < lpc.order; i++)
-                bw.sbits((int32_t)ch[i], (int)cbps);
+                bw.sbits(ch[i], (int)cbps);
             bw.bits(15 - 1, 4);                           // precision = 15
             bw.bits((uint32_t)lpc.shift, 5);
             for (int j = 0; j < lpc.order; j++)
                 bw.sbits(lpc.q[j], 15);
-            encode_residual(bw, lpc.res, lpc.order, bsize);
+            encode_residual(bw, s.res.data(), lpc.order, bsize);
             return;
         }
         bw.bits(0, 1);
         bw.bits(8 + (uint32_t)best_order, 6);  // FIXED
         bw.bits(0, 1);                          // no wasted bits
-        for (int i = 0; i < best_order; i++) bw.sbits((int32_t)ch[i], (int)cbps);
-        encode_residual(bw, best_res, best_order, bsize);
+        for (int i = 0; i < best_order; i++) bw.sbits(ch[i], (int)cbps);
+        const int32_t* res = ch;                // order 0: the samples
+        switch (best_order) {
+            case 1: fixed_residual_n<1>(ch, bsize, s.res.data()); break;
+            case 2: fixed_residual_n<2>(ch, bsize, s.res.data()); break;
+            case 3: fixed_residual_n<3>(ch, bsize, s.res.data()); break;
+            case 4: fixed_residual_n<4>(ch, bsize, s.res.data()); break;
+        }
+        if (best_order > 0) res = s.res.data();
+        encode_residual(bw, res, best_order, bsize);
     }
 
     static int rice_k(unsigned long long sum, uint32_t n) {
@@ -1247,28 +1480,32 @@ struct FlacEncoder {
         return k;
     }
 
-    void encode_residual(BitWriter& bw, const std::vector<int64_t>& res,
-                         int order, uint32_t bsize) const {
+    void encode_residual(BitWriter& bw, const int32_t* res, int order,
+                         uint32_t bsize) const {
         // choose the partition order scoring estimated bits, with the
-        // per-partition |residual| sums built bottom-up: one pass over the
-        // residual at the finest level, then pairwise merges per level
+        // per-partition |residual| sums of every order built bottom-up: one
+        // pass over the residual at the finest, then pairwise merges; order
+        // po's partitions are sums[2^po .. 2^(po+1))
         int pmax = 0;
         while (pmax < 6 && !(bsize & ((2u << pmax) - 1))
                && (bsize >> (pmax + 1)) > (uint32_t)order)
             pmax++;
-        std::vector<unsigned long long> sums(1u << pmax, 0);
+        unsigned long long sums[128];
         {
             uint32_t plen = bsize >> pmax;
+            unsigned long long* fine = sums + (1u << pmax);
             for (uint32_t p = 0; p < (1u << pmax); p++) {
                 uint32_t lo = p == 0 ? (uint32_t)order : p * plen;
                 uint32_t hi = (p + 1) * plen;
                 unsigned long long s = 0;
-                for (uint32_t i = lo; i < hi; i++) {
-                    long long v = res[i];
-                    s += (unsigned long long)(v < 0 ? -v : v);
-                }
-                sums[p] = s;
+                for (uint32_t i = lo; i < hi; i++)
+                    s += (uint32_t)std::abs(res[i]);
+                fine[p] = s;
             }
+            for (int po = pmax - 1; po >= 0; po--)
+                for (uint32_t p = 0; p < (1u << po); p++)
+                    sums[(1u << po) + p] = sums[(2u << po) + 2 * p]
+                                           + sums[(2u << po) + 2 * p + 1];
         }
         int best_po = pmax;
         unsigned long long best_bits = ~0ull;
@@ -1277,12 +1514,9 @@ struct FlacEncoder {
             unsigned long long tb = 0;
             for (uint32_t p = 0; p < parts; p++) {
                 uint32_t cnt = (bsize >> po) - (p == 0 ? order : 0);
-                tb += 5ull + rice_bits_est(sums[p], cnt);
+                tb += 5ull + rice_bits_est(sums[parts + p], cnt);
             }
             if (tb < best_bits) { best_bits = tb; best_po = po; }
-            if (po > 0)   // merge pairs for the next (coarser) level
-                for (uint32_t p = 0; p < parts / 2; p++)
-                    sums[p] = sums[2 * p] + sums[2 * p + 1];
         }
         uint32_t po = (uint32_t)best_po;
         bw.bits(1, 2);   // method 1: 5-bit rice params (covers k up to 30)
@@ -1291,20 +1525,30 @@ struct FlacEncoder {
         uint32_t idx = order;
         for (uint32_t p = 0; p < parts; p++) {
             uint32_t cnt = (bsize >> po) - (p == 0 ? (uint32_t)order : 0);
-            unsigned long long s = 0;
-            for (uint32_t i = 0; i < cnt; i++) {
-                long long v = res[idx + i];
-                s += (unsigned long long)(v < 0 ? -v : v);
-            }
-            int k = rice_k(2 * s, cnt);
+            int k = rice_k(2 * sums[parts + p], cnt);
             bw.bits((uint32_t)k, 5);
+            // a residual's zigzag value zz as q = zz >> k zeros, a 1, and
+            // zz's k low bits (k <= 30): one put of q + 1 + k bits, into
+            // room made for the partition's bits first, through a copy of
+            // the writer's state that stays in registers
+            const int32_t* v = res + idx;
+            auto zigzag = [](int32_t r) {
+                return ((uint32_t)r << 1) ^ (uint32_t)(r >> 31);
+            };
+            unsigned long long nbits = (unsigned long long)cnt * (k + 1);
+            for (uint32_t i = 0; i < cnt; i++) nbits += zigzag(v[i]) >> k;
+            bw.reserve(nbits / 8 + 1);
+            uint8_t* out = bw.bytes();
+            const uint64_t one = 1ull << k, low = one - 1;
+            BitState st = bw.st;
             for (uint32_t i = 0; i < cnt; i++) {
-                long long v = res[idx + i];
-                uint64_t zz = ((uint64_t)v << 1) ^ (uint64_t)(v >> 63);
-                uint64_t q = zz >> k;
-                bw.unary((uint32_t)q);
-                if (k) bw.bits((uint32_t)(zz & ((1ull << k) - 1)), k);
+                uint32_t zz = zigzag(v[i]);
+                uint32_t q = zz >> k;
+                for (; q + 1 + k > 56; q -= 32)  // rare: a long unary's zeros
+                    st.put(out, 0, 32);
+                st.put(out, one | (zz & low), (int)q + 1 + k);
             }
+            bw.st = st;
             idx += cnt;
         }
     }
