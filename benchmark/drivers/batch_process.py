@@ -4,14 +4,16 @@ called as entry(jobs, params, frames_per_chunk=..., state_csv_paths=...,
 device=...) on one device, one lane per input, the transport as the
 program's batch_transport picks it. A job is one batch of every input; it
 fails if any lane fails. The job's stats are the lanes' stats and the
-program's parallel.batch.LAST_TIMINGS of that call."""
+program's parallel.batch.LAST_TIMINGS of that call. The check gets the
+outputs of one batch drawn from the seed and of the newest
+(harness.driving.OutputSlots)."""
 from __future__ import annotations
 
 import os
 
 from harness import spec
-from harness.driving import (Context, Job, file_answers, program_params,
-                             timed_job)
+from harness.driving import (Context, Job, OutputSlots, file_answers,
+                             program_params, timed_job)
 
 
 class BatchProcess:
@@ -22,6 +24,7 @@ class BatchProcess:
         self.entry = spec.program_object(ctx.cell.config, "batch_entry")
         self.timings = batch.LAST_TIMINGS
         self.lanes = len(ctx.inputs)
+        self.slots = OutputSlots(ctx.seed, 1)
 
     def _run(self, paths: list, tag: str):
         c = self.ctx
@@ -46,7 +49,7 @@ class BatchProcess:
         inputs = self.ctx.inputs
 
         def one():
-            lanes, outputs = self._run(inputs.paths, f"job{k}")
+            lanes, outputs = self._run(inputs.paths, self.slots.tag(k))
             stats = {"lanes": lanes, "timings": dict(self.timings)}
             return (sum(inputs.seconds(i) for i in range(len(inputs))),
                     stats, outputs)

@@ -4,14 +4,16 @@ processor, tomatis_tpu_torch.models.xfade:process for the crossfade one),
 called as entry(in_path, out_path, params, state_csv_path=...,
 frames_per_chunk=..., progress=..., device=...): FLAC in, FLAC PCM_24 and
 the state CSV out, transport "auto". Job k takes input k mod the number
-of inputs, so a mix of several tracks is processed in turn."""
+of inputs, so a mix of several tracks is processed in turn; of each
+input the check gets one round's outputs drawn from the seed and the
+newest (harness.driving.OutputSlots)."""
 from __future__ import annotations
 
 import os
 
 from harness import spec
-from harness.driving import (Context, Job, file_answers, program_params,
-                             timed_job)
+from harness.driving import (Context, Job, OutputSlots, file_answers,
+                             program_params, timed_job)
 
 
 class FileProcess:
@@ -20,6 +22,7 @@ class FileProcess:
         self.params = program_params(ctx.cell.config)
         self.entry = spec.program_object(ctx.cell.config, "entry")
         self.progress = ctx.spans.wrap("progress", lambda done, total: None)
+        self.slots = OutputSlots(ctx.seed, len(ctx.inputs))
 
     def _run(self, in_path: str, tag: str):
         c = self.ctx
@@ -40,7 +43,8 @@ class FileProcess:
         i = k % len(inputs)
 
         def one():
-            stats, out, csv_path = self._run(inputs.paths[i], f"job{k}")
+            stats, out, csv_path = self._run(inputs.paths[i],
+                                             self.slots.tag(k))
             return inputs.seconds(i), stats, [(i, out, csv_path)]
         return timed_job(k, self.ctx.spans, "job", one)
 

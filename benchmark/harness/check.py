@@ -22,15 +22,20 @@ The numbers compared, each against its cell's limit (workloads/<cell>.json
                 reference's, dB
   alpha_frames  crossfade state-CSV rows whose alpha, as the CSV prints
                 it, is not the reference ramp's
-Only the numbers a cell's outputs carry are compared. Frames that the
-reference marks `masked` (a gate decision within rounding of a threshold
-changes their weight) and the samples under them are left out of every
-number but level_db."""
+  and the cell's own numbers, where its workload names a module of them
+                under "numbers" (its NUMBERS: reference/__init__.py), on
+                the further outputs the driver hands the check beside
+                the audio and the CSV
+Only the numbers a cell's outputs carry are compared; one that reads NaN
+reads inf. Frames that the reference marks `masked` (a gate decision
+within rounding of a threshold changes their weight) and the samples
+under them are left out of every number but level_db."""
 from __future__ import annotations
 
 import csv
 import math
-from dataclasses import dataclass
+import sys
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -43,13 +48,15 @@ FULL_SCALE = 8388608.0
 @dataclass
 class Answer:
     """One output of the timed path: `pcm` (int32 PCM_24 values, a file's
-    samples) or `y` (float samples, an array's), and the parsed state CSV
-    where the entry writes one."""
+    samples) or `y` (float samples, an array's), the parsed state CSV
+    where the entry writes one, and `files`, {name: path} of the further
+    outputs the entry wrote, which the cell's own numbers read."""
     name: str
     input: int
     pcm: np.ndarray | None = None
     y: np.ndarray | None = None
     csv: dict | None = None
+    files: dict = field(default_factory=dict)
 
 
 def read_state_csv(path: str) -> dict:
@@ -114,11 +121,27 @@ def _csv_gaps(a: Answer, ref: dict, config: dict) -> dict:
     return out
 
 
+def _own_numbers(own, a: Answer, x, ref: dict, config: dict,
+                 quantise) -> dict:
+    """The cell's own numbers for answer `a`: inf for a name the module
+    leaves out, and for every name where a further output is missing or
+    cannot be read, with the cause on standard error."""
+    nums = dict.fromkeys(own.NUMBERS, math.inf)
+    try:
+        nums.update(own.numbers(a, x, ref, config, quantise))
+    except (OSError, ValueError, KeyError) as e:
+        print(f"check: {a.name}: its own numbers read inf: {e!r}",
+              file=sys.stderr, flush=True)
+    return nums
+
+
 def compare(answers: list, inputs, config: dict,
-            quantise=precision.identity, each: list | None = None) -> dict:
+            quantise=precision.identity, each: list | None = None,
+            own=None) -> dict:
     """{number: worst reading over the answers}. The configuration's
-    reference runs once per distinct input. `each`, when given, gets
-    (answer name, its numbers, the count of masked frames) for every
+    reference runs once per distinct input; `own` is the module of the
+    cell's own numbers (spec.own_numbers), or None. `each`, when given,
+    gets (answer name, its numbers, the count of masked frames) for every
     answer."""
     reference = spec.reference(config)
     worst: dict = {}
@@ -126,16 +149,21 @@ def compare(answers: list, inputs, config: dict,
     for a in answers:
         by_input.setdefault(a.input, []).append(a)
     for i, group in sorted(by_input.items()):
-        ref = reference.render(inputs.reference_input(i), config, quantise)
+        x = inputs.reference_input(i)
+        ref = reference.render(x, config, quantise)
         for a in group:
             nums = _audio_gaps(a, ref, config["params"]["n_fft"])
             if a.csv is not None:
                 nums.update(_csv_gaps(a, ref, config))
+            if own is not None:
+                nums.update(_own_numbers(own, a, x, ref, config, quantise))
+            nums = {k: math.inf if math.isnan(v) else float(v)
+                    for k, v in nums.items()}
             for k, v in nums.items():
                 worst[k] = max(worst.get(k, -math.inf), v)
             if each is not None:
                 each.append((a.name, nums, int(ref["masked"].sum())))
-        del ref
+        del ref, x
     return worst
 
 

@@ -22,6 +22,8 @@ from harness.check import Answer, read_state_csv
 from harness.inputs import Inputs
 from harness.trace import Spans
 
+KEEP_ROUNDS = 4
+
 
 @dataclass
 class Context:
@@ -37,8 +39,10 @@ class Context:
 @dataclass
 class Job:
     """One job of the window. audio_s counts only when it succeeded.
-    outputs: (input index, audio file, state CSV or None) it wrote, or
-    (input index, array) it returned, for the check."""
+    outputs: (input index, audio file, state CSV or None) it wrote, with
+    as a fourth element {name: path} of the further files it wrote where
+    the cell holds numbers of its own on them (reference/__init__.py);
+    or (input index, array) it returned; for the check."""
     index: int
     audio_s: float
     wall_s: float
@@ -81,20 +85,35 @@ def _digest(path: str | None) -> str:
     return h.hexdigest()
 
 
+def _output_key(output: tuple) -> tuple:
+    """What makes two outputs the same answer: the input, and the bytes of
+    the audio, the state CSV and each further file."""
+    i, audio_path, csv_path, *further = output
+    files = further[0] if further else {}
+    return (i, _digest(audio_path), _digest(csv_path)) + tuple(
+        (name, _digest(files[name])) for name in sorted(files))
+
+
 def file_answers(jobs: list) -> list:
-    """Every output file the window's jobs wrote, judged once per distinct
-    content: equal bytes are the same answer."""
+    """Every output file the window's jobs left, judged once per distinct
+    content: equal bytes are the same answer. A file that several jobs
+    wrote over (OutputSlots) holds, and is named after, the newest."""
     from reference import flaccodec
-    outs = [(j.index, o) for j in jobs for o in j.outputs]
+    newest = {}
+    for j in jobs:
+        for o in j.outputs:
+            i, audio_path, csv_path, *further = o
+            files = tuple(sorted(further[0].items())) if further else ()
+            newest[(i, audio_path, csv_path, files)] = (j.index, o)
+    outs = list(newest.values())
     with ThreadPoolExecutor(8) as pool:
-        keys = list(pool.map(lambda io: (io[1][0], _digest(io[1][1]),
-                                         _digest(io[1][2])), outs))
+        keys = list(pool.map(lambda io: _output_key(io[1]), outs))
     distinct = {}
     for (k, o), key in zip(outs, keys):
         distinct.setdefault(key, (k, o))
 
     def load(item):
-        k, (i, audio_path, csv_path) = item
+        k, (i, audio_path, csv_path, *further) = item
         try:
             pcm, _, _ = flaccodec.decode(audio_path)
         except OSError:             # no file, or not one: no samples
@@ -104,10 +123,27 @@ def file_answers(jobs: list) -> list:
         except (OSError, KeyError, ValueError):
             table = EMPTY_CSV
         return Answer(f"job{k}:{os.path.basename(audio_path)}", i, pcm=pcm,
-                      csv=table)
+                      csv=table, files=dict(further[0]) if further else {})
 
     with ThreadPoolExecutor(8) as pool:
         return list(pool.map(load, distinct.values()))
+
+
+class OutputSlots:
+    """Where a file driver's job k writes: of each input, the check keeps
+    the outputs of one round drawn from the seed among its first
+    KEEP_ROUNDS, and the newest; the input's other jobs write over its one
+    slot. A window that kept every output wrote 2-7 GB to disk a run; a
+    file written over within seconds never leaves the page cache."""
+
+    def __init__(self, seed: int, n_inputs: int):
+        rng = np.random.default_rng([int(seed) % 2 ** 63, 11])
+        self.n = n_inputs
+        self.kept = [int(r) for r in rng.integers(0, KEEP_ROUNDS, n_inputs)]
+
+    def tag(self, k: int) -> str:
+        i = k % self.n
+        return f"job{k}" if k // self.n == self.kept[i] else f"slot{i}"
 
 
 def sample_indices(seed: int, first: int, draws: int) -> set:

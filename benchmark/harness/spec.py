@@ -2,8 +2,10 @@
 the checkout, benchmark/workloads/<cell>.json, configs/<config>.json,
 traffic/<mix>.json, and the Python files of a traffic generator
 (traffic/<generator>.py), an entry driver (drivers/<driver>.py), a
-metric's reader (metrics/<metric>.py) and the configuration's plain
-reference (reference/<module>.py). The configuration also names the
+metric's reader (metrics/<metric>.py), the configuration's plain
+reference (reference/<module>.py) and, where the cell holds numbers of
+its own, the module that the workload names under "numbers"
+(reference/<module>.py as well). The configuration also names the
 program's entry points and params class as "package.module:attribute",
 found with importlib. A new cell, configuration, processor, mix,
 generator, driver or metric is a new file; nothing here changes. A name
@@ -80,6 +82,14 @@ def reference(config: dict):
     return load_module("reference", named(config, "reference"))
 
 
+def own_numbers(workload: dict):
+    """The module of the cell's own numbers that the workload names under
+    "numbers" (reference/<module>.py), or None where it names none."""
+    if "numbers" not in workload:
+        return None
+    return load_module("reference", workload["numbers"])
+
+
 @dataclass
 class Cell:
     name: str
@@ -88,6 +98,7 @@ class Cell:
     mix: dict
     end_to_end: list = field(default_factory=list)   # BENCHMARK.json rows
     per_layer: list = field(default_factory=list)
+    numbers: object = None          # own_numbers(workload)
 
 
 def reports(metric: dict, cell: str, e2e_names: set) -> bool:
@@ -111,4 +122,4 @@ def load_cell(name: str, bench: dict | None = None) -> Cell:
     e2e = [m for m in bench["end_to_end"] if reports(m, name, set())]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if reports(m, name, names)]
-    return Cell(name, wl, cfg, mix, e2e, per_layer)
+    return Cell(name, wl, cfg, mix, e2e, per_layer, own_numbers(wl))

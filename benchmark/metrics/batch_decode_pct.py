@@ -4,7 +4,7 @@ reads of the source on the producer's pool, producer.decode spans of
 utils/trace.py), as a percentage of the window's wall time. Layer batch."""
 from harness.readers import share_of_window
 
-UNIT, SOURCE, MOVES = "%", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "program_span", "device_ms_per_audio_min"
 READS = 'max of stats["timings"]["lane_decode_s"] of each batch'
 
 

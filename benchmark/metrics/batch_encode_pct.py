@@ -4,7 +4,7 @@ writes and the encoder's close, writer.encode and writer.close spans of
 utils/trace.py), as a percentage of the window's wall time. Layer batch."""
 from harness.readers import share_of_window
 
-UNIT, SOURCE, MOVES = "%", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "program_span", "device_ms_per_audio_min"
 READS = 'max of stats["timings"]["lane_encode_s"] of each batch'
 
 

@@ -2,7 +2,7 @@
 a percentage of the window's wall time. Layer batch: the producer's wall time in the lanes' reads (parallel.batch.LAST_TIMINGS read_s)."""
 from harness.readers import share_of_window, stage_seconds
 
-UNIT, SOURCE, MOVES = "%", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "program_span", "device_ms_per_audio_min"
 READS = 'stats["timings"]["read_s"] of each job'
 
 

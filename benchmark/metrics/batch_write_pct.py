@@ -4,7 +4,7 @@ routing, flush cuts, CSV rows and FLAC encode), as a percentage of the
 window's wall time. Layer batch."""
 from harness.readers import share_of_window
 
-UNIT, SOURCE, MOVES = "%", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "program_span", "device_ms_per_audio_min"
 READS = 'max of stats["timings"]["lane_write_s"] of each batch'
 
 

@@ -9,7 +9,7 @@ frames come from cuFFT just before, partly from L2."""
 from harness.readers import is_chunk_tail
 from reference.roofline import batched_tail_bytes
 
-UNIT, SOURCE, MOVES = "GB/s", "device_trace", "realtime_x"
+UNIT, SOURCE, MOVES = "GB/s", "device_trace", "device_ms_per_audio_min"
 READS = "chunk_tail_batched_cuda.launches and .by_variant; chunk_tail_kernel (batched) device time"
 
 

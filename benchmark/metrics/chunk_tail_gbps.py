@@ -15,7 +15,7 @@ another launch count than the program's counter."""
 from harness.readers import is_chunk_tail
 from reference.roofline import tail_bytes
 
-UNIT, SOURCE, MOVES = "GB/s", "device_trace", "realtime_x"
+UNIT, SOURCE, MOVES = "GB/s", "device_trace", "device_ms_per_audio_min"
 READS = "chunk_tail_cuda.by_frames and .by_variant; chunk_tail_kernel device time"
 
 

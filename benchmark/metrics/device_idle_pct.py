@@ -2,7 +2,7 @@
 set intervals / the traced window), from torch.profiler (CUPTI). Layer
 device. A traced run on the card that records no device event fails in
 run.py; nothing is read without a trace."""
-UNIT, SOURCE, MOVES = "%", "device_trace", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "device_trace", "device_ms_per_audio_min"
 READS = "every CUDA event of the window's trace"
 
 

@@ -2,7 +2,7 @@
 a percentage of the window's wall time. Layer stream chunk step: the chunk step's enqueue and the pipeline's S1/S2 (StreamRunner.run's dispatch_compute_s)."""
 from harness.readers import share_of_window, stage_seconds
 
-UNIT, SOURCE, MOVES = "%", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "program_span", "device_ms_per_audio_min"
 READS = 'stats["timings"]["dispatch_compute_s"] of each job'
 
 

@@ -4,7 +4,7 @@ process_file / run_array, and StreamRunner.run's carries, reader and
 helper threads), in ms. Layer: entry."""
 from harness.readers import stage_seconds
 
-UNIT, SOURCE, MOVES = "ms", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "ms", "program_span", "device_ms_per_audio_min"
 READS = 'stats["timings"]["runner_setup_s"] of each job'
 
 

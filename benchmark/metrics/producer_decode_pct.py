@@ -3,7 +3,7 @@ a percentage of the window's wall time. Layer stream producer: the producer thre
 (the FLAC decode and its int or float conversion; producer.decode spans of utils/trace.py)."""
 from harness.readers import share_of_window, stage_seconds
 
-UNIT, SOURCE, MOVES = "%", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "program_span", "device_ms_per_audio_min"
 READS = 'stats["timings"]["decode_s"] of each job'
 
 

@@ -3,7 +3,7 @@ a percentage of the window's wall time. Layer stream producer: the calling threa
 producer's next chunk (stream.producer_wait spans of utils/trace.py, inside input_host_s)."""
 from harness.readers import share_of_window, stage_seconds
 
-UNIT, SOURCE, MOVES = "%", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "program_span", "device_ms_per_audio_min"
 READS = 'stats["timings"]["producer_wait_s"] of each job'
 
 

@@ -3,7 +3,7 @@ a percentage of the window's wall time. Layer writer: the writer thread's busy t
 host half (routing, CSV rows, flush-cut drain and the sink's writes; writer.job spans of utils/trace.py)."""
 from harness.readers import share_of_window, stage_seconds
 
-UNIT, SOURCE, MOVES = "%", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "program_span", "device_ms_per_audio_min"
 READS = 'stats["timings"]["writer_busy_s"] of each job'
 
 

@@ -4,7 +4,7 @@ the native encode, writer.encode spans, on the writer thread and in the final dr
 close (writer.close), from the program's span recorder (utils/trace.py)."""
 from harness.readers import share_of_window, stage_seconds
 
-UNIT, SOURCE, MOVES = "%", "program_span", "realtime_x"
+UNIT, SOURCE, MOVES = "%", "program_span", "device_ms_per_audio_min"
 READS = 'stats["timings"]["encode_s"] of each job'
 
 

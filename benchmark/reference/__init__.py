@@ -25,4 +25,33 @@ the same numbering.
 
 Where its processor's gate has a threshold fixed by its params, the module
 also defines threshold_dbfs(params) -> dBFS, which the configuration's
-"threshold_dbfs" equals (benchmark/tests/test_benchmark_files.py)."""
+"threshold_dbfs" equals (benchmark/tests/test_benchmark_files.py).
+
+A cell may hold numbers of its own, on further outputs that its driver
+hands the check beside the audio and the state CSV (a verifier's report,
+say: harness.check.Answer.files, {name: path}). Its workload file names
+under "numbers" a module in this directory, which keeps to the rules
+above (nothing of the program, nothing of JAX) and defines
+  NUMBERS        {name: one line on what it measures}; the cell's limits
+                 hold each name
+  numbers(answer, x, ref, config, quantise) -> {name: float}
+                 the gaps between what the answer's further outputs say
+                 and what this module's own plain implementation gives on
+                 the same data: the input x and the answer's own samples
+                 (answer.pcm or answer.y); ref is the configuration's
+                 render() dict for x. 0 is a perfect answer; an answer
+                 that lacks an output the module needs reads inf (so does
+                 a name the dict leaves out, a NaN, and every name where
+                 an output cannot be read: harness.check logs the cause)
+  outputs(answer, x, ref, config, quantise, directory) -> {name: path}
+                 the further outputs as the program writes them, made by
+                 this module's plain implementation at quantise's
+                 precision from x and the answer's samples and written
+                 under directory: how the lower-precision control
+                 (harness/control.py) carries them, so that numbers()
+                 reads the program's answers and the control's alike
+Outputs of equal bytes are one answer (harness.driving.file_answers), and
+numbers() runs once per answer: a driver writes the further outputs so
+that they depend on the answer's content alone, not on their path or the
+time, and the window's repeats of one input fold to one answer. A cell whose workload names no such module is checked on its audio
+and state CSV alone."""

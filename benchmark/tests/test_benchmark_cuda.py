@@ -30,8 +30,9 @@ def test_a_run_on_the_card(trace):
     assert dev["memory_peak_bytes"] > 0
     if trace:
         assert 0 < dev["busy_s"] < dev["window_s"]
-        assert {"device_idle_pct", "chunk_tail_gbps",
+        assert {"device_idle_pct", "chunk_tail_gbps", "realtime_x.per_layer",
                 "peak_device_mb"} <= set(line["metrics"])
         assert len(line["breakdown"]["device_ops"]) <= 10
     else:
-        assert set(line["metrics"]) == {"realtime_x", "setup_s"}
+        assert set(line["metrics"]) == {"device_ms_per_audio_min", "setup_s"}
+        assert line["metrics"]["device_ms_per_audio_min"]["value"] > 0

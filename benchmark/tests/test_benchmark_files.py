@@ -2,8 +2,8 @@
 generator, driver and metric loads; names and units keep to their
 characters; each metric's reader agrees with its row; every `moves` names
 an end-to-end metric its cells report; every cell has a limit for each
-number its outputs carry; every configuration's entry points, params
-class and reference are there."""
+number its outputs carry, its own numbers among them; every
+configuration's entry points, params class and reference are there."""
 import json
 import os
 
@@ -93,6 +93,14 @@ def test_workload_files(cell):
         want |= {"state_frames", "level_db"}
         if "csv_alpha_format" in c.config or _renders_alpha(c.config):
             want.add("alpha_frames")
+    # and for each of the cell's own numbers, whose module comes with the
+    # functions that read and make them
+    if c.numbers is not None:
+        assert callable(c.numbers.numbers) and callable(c.numbers.outputs)
+        for name, what in c.numbers.NUMBERS.items():
+            spec.check_name(name, "number")
+            assert 1 <= len(what) <= 200 and not LINE & set(what), name
+        want |= set(c.numbers.NUMBERS)
     assert set(w["limits"]) == want
     # setup_s, another end-to-end metric and a per-layer one
     e2e = {m["name"] for m in c.end_to_end}

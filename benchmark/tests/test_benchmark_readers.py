@@ -49,12 +49,14 @@ def single_run(trace, by_frames, variants):
 def test_window_shares_and_rates():
     run = single_run(None, {}, {})
     assert read("realtime_x", run) == pytest.approx(1800 / 36)
+    assert read("realtime_x.per_layer", run) == pytest.approx(1800 / 36)
     assert read("setup_s", run) == 15.0
     assert read("job_setup_ms", run) == pytest.approx(20.0)
     assert read("writer_wait_pct", run) == pytest.approx(100 * 27 / 36)
     assert read("input_wait_pct", run) == pytest.approx(100 * 0.3 / 36)
     assert read("peak_device_mb", run) == pytest.approx(450.0)
     assert read("device_idle_pct", run) is None
+    assert read("device_ms_per_audio_min", run) is None
     assert read("chunk_tail_gbps", run) is None
     assert read("batch_read_pct", run) is None
 
@@ -106,6 +108,9 @@ def test_busy_union_and_idle_gaps():
     assert gaps == pytest.approx({"entry.process": 5.5, "job": 1.0})
     run = single_run(t, {}, {})
     assert read("device_idle_pct", run) == pytest.approx(65.0)
+    # 3.5 s of device time over three jobs of 600 s of audio
+    assert read("device_ms_per_audio_min", run) == pytest.approx(
+        1000 * 3.5 / 30)
 
 
 def test_events_of_a_profile():

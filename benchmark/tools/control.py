@@ -40,8 +40,9 @@ def main(argv=None) -> int:
             try:
                 t0 = time.perf_counter()
                 inputs = Inputs(cell, seed, d)
-                nums = check.compare(control.answers(inputs, cell.config),
-                                     inputs, cell.config)
+                nums = check.compare(
+                    control.answers(inputs, cell.config, own=cell.numbers),
+                    inputs, cell.config, own=cell.numbers)
                 ok, checks = check.judge(nums, cell.workload["limits"])
             finally:
                 shutil.rmtree(d, ignore_errors=True)
