@@ -2,24 +2,28 @@
 every stage timer a reader in benchmark/metrics/ names (each "<key>_s"
 string in its source) is in the stats of the runs of its kind, a FLAC
 `process`, a crossfade `process`, a B = 2 `process_batch`, a
-`process_array` and an adaptive `process`; every launch counter of
-benchmark/harness/counters.py is on ops/cuda_ola.py; and the timers keep
-their identities. The benchmark's
+`process_array`, an adaptive `process`, and the two verifiers of the
+audited job (`validate`, `verify`) on the `process` output; every launch
+counter of benchmark/harness/counters.py is on ops/cuda_ola.py; and the
+timers keep their identities. The benchmark's
 own tests are not in the Tier-1 command, so a renamed timer would pass
 it without this file."""
 import importlib.util
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from tomatis_tpu_torch.cli.process import sidecar_fields
 from tomatis_tpu_torch.io import audio
 from tomatis_tpu_torch.models import adaptive, standard, xfade
 from tomatis_tpu_torch.models.standard import StandardParams, process
 from tomatis_tpu_torch.parallel import batch
 from tomatis_tpu_torch.utils import trace
+from tomatis_tpu_torch.verify import validate_layer1, verify_15db
 
 torch.set_num_threads(2)
 SR = 48000
@@ -77,8 +81,24 @@ def runs(tmp_path_factory):
     ad = adaptive.process(ip, d / "a.flac", adaptive.AdaptiveParams(),
                           state_csv_path=d / "a.csv", frames_per_chunk=FPC,
                           device="cpu")
+    # the audited job's verifiers with the sidecar's settings, no PNGs
+    fields = {k: v for k, v in sidecar_fields(StandardParams()).items()
+              if k not in ("threshold_dbfs", "gate_mode", "dynamic_range",
+                           "output_gain_db")}
+    with pytest.MonkeyPatch.context() as mp, trace.timeline():
+        mp.setitem(sys.modules, "matplotlib", None)
+        trace.clear()
+        val = validate_layer1.validate(ip, d / "o.flac", d / "s.csv",
+                                       out_csv=str(d / "v.csv"),
+                                       out_png=None, device="cpu", **fields)
+        val_rows = trace.rows()
+        trace.clear()
+        ver = verify_15db.verify(ip, d / "o.flac", out_prefix=str(d / "f"),
+                                 device="cpu", **fields)
+        ver_rows = trace.rows()
     return dict(process=st, xfade=xf, batch=lt, array=arr, rows=rows,
-                adaptive=ad)
+                adaptive=ad, validate=val, verify15=ver,
+                verify_rows={"validate": val_rows, "verify15": ver_rows})
 
 
 def test_every_timer_a_reader_names_is_there(runs):
@@ -89,7 +109,9 @@ def test_every_timer_a_reader_names_is_there(runs):
             "batch_write_pct", "writer_encode_pct", "writer_busy_pct",
             "producer_decode_pct", "producer_wait_pct", "batch_encode_pct",
             "batch_decode_pct", "adaptive_decode_pct", "adaptive_probe_ms",
-            "adaptive_pass3_pct", "adaptive_finalize_pct"} <= set(keys)
+            "adaptive_pass3_pct", "adaptive_finalize_pct", "audit_decode_pct",
+            "audit_gate_pct", "audit_spectrum_pct", "audit_spectrum_frame_us",
+            "audit_artifacts_pct"} <= set(keys)
     for metric, names in keys.items():
         if metric.startswith("batch_"):
             kinds = ("batch",)
@@ -97,6 +119,8 @@ def test_every_timer_a_reader_names_is_there(runs):
             kinds = ("array",)
         elif metric.startswith("adaptive_"):
             kinds = ("adaptive",)
+        elif metric.startswith("audit_"):
+            kinds = ("validate", "verify15")
         else:
             kinds = ("process", "xfade")
         for kind in kinds:
@@ -148,3 +172,67 @@ def test_the_adaptive_timers_keep_their_identities(runs):
         + t["pass3_s"]
     assert 0 < t["step_s"] + t["stage_write_s"] <= t["pass3_s"]
     assert 0 < t["encode_s"] <= t["restore_protect_s"]
+
+
+# span name -> (the timer it sums into, or None, and its parents)
+VERIFY_SPANS = {
+    "verify.decode": ("decode_s", {"verify.validate", "verify.verify15"}),
+    "verify.gate": ("gate_s", {"verify.validate", "verify.verify15"}),
+    "verify.levels": (None, {"verify.gate"}),
+    "verify.gate_scan": (None, {"verify.gate"}),
+    "verify.spectrum": ("spectrum_s", {"verify.validate", "verify.verify15"}),
+    "verify.ratios": (None, {"verify.spectrum"}),
+    "verify.median": (None, {"verify.spectrum"}),
+    "verify.tilt": ("tilt_s", {"verify.verify15"}),
+    "verify.artifacts": ("artifacts_s", {"verify.validate",
+                                         "verify.verify15"}),
+}
+PARENT = {"validate": "verify.validate", "verify15": "verify.verify15"}
+
+
+def test_the_verifier_timers_keep_their_identities(runs):
+    """The audited job's readers find their counters; each verifier's
+    stage timers sum to no more than its call's span; the spectrum
+    computed at least the frames it kept; the call uploaded."""
+    for tool in ("validate", "verify15"):
+        res = runs[tool]
+        t, c = res["timings"], res["counters"]
+        want = {"decode_s", "gate_s", "spectrum_s", "artifacts_s"}
+        if tool == "verify15":
+            want.add("tilt_s")
+        assert set(t) == want and all(v > 0 for v in t.values()), t
+        (call,) = [r for r in runs["verify_rows"][tool]
+                   if r.name == PARENT[tool]]
+        assert sum(t.values()) <= call.t1 - call.t0
+        sp = res["checks"]["spectrum"]
+        assert c["spectrum_frames"] >= sp["c1_frames"] + sp["c2_frames"] > 0
+        assert c["upload_bytes"] > 0
+    # one upload a signal and use at least: the validator's levels and
+    # spectrum take the input twice and the output once, the verifier's
+    # Tilt Index both once more
+    n = runs["validate"]["checks"]["engineering"]["frames_in"]
+    assert runs["validate"]["counters"]["upload_bytes"] >= 3 * n * 2 * 4
+    assert runs["verify15"]["counters"]["upload_bytes"] >= 5 * n * 2 * 4
+
+
+def test_the_verifier_spans_are_rows(runs):
+    """Under trace.timeline() each verifier's call is one parent row on the
+    calling thread, its stages nested as they are, each stage timer the
+    sum of its spans."""
+    for tool, rows in runs["verify_rows"].items():
+        assert {r.thread for r in rows} == {"MainThread"}
+        names = {r.name for r in rows}
+        want = set(VERIFY_SPANS) | {PARENT[tool]}
+        if tool == "validate":
+            want.discard("verify.tilt")
+        assert names == want, names ^ want
+        for r in rows:
+            if r.name == PARENT[tool]:
+                assert r.parent is None
+            else:
+                assert r.parent in VERIFY_SPANS[r.name][1], r
+        t = runs[tool]["timings"]
+        for name, (key, _) in VERIFY_SPANS.items():
+            if key in t:
+                total = sum(r.t1 - r.t0 for r in rows if r.name == name)
+                assert abs(total - t[key]) <= 1e-6, (name, total, t[key])

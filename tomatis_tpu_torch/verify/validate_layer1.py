@@ -17,19 +17,43 @@ the two uploaded signals. On the host: the stable-frame selection, the
 statistics, the CSV, and the per-bin medians (np.median averages the two
 middle values of an even count, torch.median does not, and
 torch.quantile refuses more than 2^24 elements).
+
+validate() times its stages with utils/trace.py spans on the calling
+thread: verify.validate around the call; inside it verify.decode (both
+reads), verify.gate (children verify.levels: upload, frame levels and
+read-back; verify.gate_scan), verify.spectrum (children verify.ratios:
+gather, the two rFFTs and |Y|/|X| on the device; verify.median: the
+read-back and the host's per-bin medians) and verify.artifacts. The
+stage spans sum into results["timings"]; results["counters"] holds
+spectrum_frames (the frames whose ratios were computed, both states,
+before the -60 dBFS keep) and upload_bytes (the host arrays the call
+handed to its device).
 """
 from __future__ import annotations
 
 import csv
-import time
 
 import numpy as np
 import torch
 
 from tomatis_tpu_torch.io import audio
 from tomatis_tpu_torch.ops import dsp, gate as gate_ops, stft
+from tomatis_tpu_torch.utils import trace
 from tomatis_tpu_torch.utils.device import resolve_device
 from tomatis_tpu_torch.utils.stateio import read_state_csv
+
+
+def _count(counters: dict | None, key: str, n: int) -> None:
+    """Add n to a call's counters[key]; None counts nothing."""
+    if counters is not None:
+        counters[key] = counters.get(key, 0) + int(n)
+
+
+def to_device(a: np.ndarray, dev, counters: dict | None = None):
+    """A host array on dev, its bytes counted as counters["upload_bytes"]."""
+    a = np.ascontiguousarray(a)
+    _count(counters, "upload_bytes", a.nbytes)
+    return torch.from_numpy(a).to(dev)
 
 
 def check_engineering(in_path, out_path, y: np.ndarray | None = None) -> dict:
@@ -51,18 +75,20 @@ def check_engineering(in_path, out_path, y: np.ndarray | None = None) -> dict:
         peak=peak, peak_safe=peak < 0.98)
 
 
-def padded_signal(x: np.ndarray, n_fft: int, dev, total=None):
+def padded_signal(x: np.ndarray, n_fft: int, dev, total=None,
+                  counters: dict | None = None):
     """Host [N, C] -> [total + n_fft//2*2, C] float32 on dev: half a window
     of zeros at both ends, cut or zero-filled to `total` samples first
     (default N)."""
     pad = n_fft // 2
     total = len(x) if total is None else total
-    t = torch.from_numpy(np.ascontiguousarray(x[:total], np.float32)).to(dev)
+    t = to_device(np.asarray(x[:total], np.float32), dev, counters)
     return torch.nn.functional.pad(t, (0, 0, pad, pad + total - len(t)))
 
 
 def _inrange_frame_levels(x: np.ndarray, n_fft: int, hop: int,
-                          chunk: int = 4096, device="cuda") -> np.ndarray:
+                          chunk: int = 4096, device="cuda",
+                          counters: dict | None = None) -> np.ndarray:
     """Levels of frames whose start lies in [0, total) after half-window
     padding (the validator/adaptive frame convention): one upload, then
     `chunk` frames at a time on the device."""
@@ -74,7 +100,7 @@ def _inrange_frame_levels(x: np.ndarray, n_fft: int, hop: int,
     F = max(0, k1 - k0 + 1)
     if F == 0:
         return np.zeros(0, np.float32)
-    xp = padded_signal(x, n_fft, dev)
+    xp = padded_signal(x, n_fft, dev, counters=counters)
     out = []
     for f0 in range(0, F, chunk):
         nf = min(chunk, F - f0)
@@ -86,19 +112,23 @@ def _inrange_frame_levels(x: np.ndarray, n_fft: int, hop: int,
 
 def simulate_gate(x: np.ndarray, sr: int, n_fft: int, hop: int,
                   threshold_dbfs: float, hyst_db: float, up_delay_ms: float,
-                  device="cuda"):
+                  device="cuda", counters: dict | None = None):
     """Independent gate recomputation over in-range frames (ref :110-163).
     Returns (states ['C1'/'C2'], levels)."""
     dev = resolve_device(device)
-    levels = _inrange_frame_levels(x, n_fft, hop, device=dev)
+    with trace.span("verify.levels"):
+        levels = _inrange_frame_levels(x, n_fft, hop, device=dev,
+                                       counters=counters)
     if len(levels) == 0:
         return [], levels
     ton = threshold_dbfs + hyst_db / 2.0
     toff = threshold_dbfs - hyst_db / 2.0
     delay = gate_ops.updelay_frames(int(up_delay_ms * sr / 1000.0), hop)
-    states, _ = gate_ops.gate_updelay(torch.from_numpy(levels).to(dev), ton,
-                                      toff, delay)
-    return ["C1" if s == 1 else "C2" for s in states.cpu().tolist()], levels
+    with trace.span("verify.gate_scan"):
+        states, _ = gate_ops.gate_updelay(to_device(levels, dev, counters),
+                                          ton, toff, delay)
+        states = ["C1" if s == 1 else "C2" for s in states.cpu().tolist()]
+    return states, levels
 
 
 def compare_gate_states(csv_states, sim_states, sim_levels, csv_levels):
@@ -156,10 +186,10 @@ def find_stable_frames(states, margin: int = 2):
     return idx[c1_ok], idx[c2_ok]
 
 
-def gather_frames(xp: torch.Tensor, starts: np.ndarray,
-                  n_fft: int) -> torch.Tensor:
+def gather_frames(xp: torch.Tensor, starts: np.ndarray, n_fft: int,
+                  counters: dict | None = None) -> torch.Tensor:
     """Frames [B, n_fft, C] of a device signal at host start indices."""
-    s = torch.from_numpy(np.asarray(starts, np.int64)).to(xp.device)
+    s = to_device(np.asarray(starts, np.int64), xp.device, counters)
     return xp[s[:, None] + torch.arange(n_fft, device=xp.device)[None, :]]
 
 
@@ -186,7 +216,8 @@ def median_db(ratios: list, nbins: int):
 
 def conditional_spectrum(x, y, sr, states, n_fft, hop,
                          level_threshold: float = -60.0, margin: int = 2,
-                         batch: int = 512, device="cuda"):
+                         batch: int = 512, device="cuda",
+                         counters: dict | None = None):
     """Median per-bin |Y|/|X| over stable high-level frames, per state
     (ref :261-398). Returns (freqs, c1_db, c2_db, n_c1, n_c2)."""
     dev = resolve_device(device)
@@ -196,9 +227,9 @@ def conditional_spectrum(x, y, sr, states, n_fft, hop,
         y = y[:, None]
     pad = n_fft // 2
     total = len(x)
-    xp = padded_signal(x, n_fft, dev)
-    yp = padded_signal(y, n_fft, dev, total)
-    win = torch.from_numpy(stft.hann_symmetric(n_fft)).to(dev)
+    xp = padded_signal(x, n_fft, dev, counters=counters)
+    yp = padded_signal(y, n_fft, dev, total, counters=counters)
+    win = to_device(stft.hann_symmetric(n_fft), dev, counters)
     c1_idx, c2_idx = find_stable_frames(states, margin)
     freqs = stft.rfft_freqs(n_fft, sr)
     # frame i of the level/gate framing starts at original coord
@@ -207,13 +238,17 @@ def conditional_spectrum(x, y, sr, states, n_fft, hop,
 
     def collect(idx):
         idx = idx[(idx * hop + off >= 0) & (idx * hop + off + n_fft <= total)]
+        _count(counters, "spectrum_frames", len(idx))
         keep = []
-        for b0 in range(0, len(idx), batch):
-            starts = idx[b0:b0 + batch] * hop + off + pad
-            fx = gather_frames(xp, starts, n_fft)
-            r = channel_mean_ratios(fx, gather_frames(yp, starts, n_fft), win)
-            keep.append(r[dsp.frame_levels_dbfs(fx) >= level_threshold])
-        return median_db(keep, len(freqs))
+        with trace.span("verify.ratios"):
+            for b0 in range(0, len(idx), batch):
+                starts = idx[b0:b0 + batch] * hop + off + pad
+                fx = gather_frames(xp, starts, n_fft, counters)
+                fy = gather_frames(yp, starts, n_fft, counters)
+                r = channel_mean_ratios(fx, fy, win)
+                keep.append(r[dsp.frame_levels_dbfs(fx) >= level_threshold])
+        with trace.span("verify.median"):
+            return median_db(keep, len(freqs))
 
     c1_db, n1 = collect(c1_idx)
     c2_db, n2 = collect(c2_idx)
@@ -248,65 +283,73 @@ def validate(in_path, out_path, state_csv, gate_ui=50.0, gate_scale=1.0,
              c2_low=-5.0, c2_high=5.0, n_fft=4096, hop=2048,
              out_csv="layer1_spectrum_check.csv",
              out_png="layer1_spectrum_check.png", device="cuda") -> dict:
-    """Full A-D audit; returns the results dict with results['pass'] and
+    """Full A-D audit; returns the results dict with results['pass'],
     results['timings'] (decode, gate recomputation, conditional spectrum,
-    artifacts; seconds)."""
+    artifacts; seconds, the sums of their spans) and results['counters']
+    (spectrum_frames, upload_bytes)."""
     dev = resolve_device(device)
     threshold = gate_scale * gate_ui + gate_offset
     results = {"pass": True, "checks": {}, "threshold_dbfs": threshold}
-    t0 = time.perf_counter()
-    y, _ = audio.read(out_path)   # decoded once, reused by every check
-    x, sr = audio.read(in_path)
-    t1 = time.perf_counter()
+    timings = {}
+    counters = {"spectrum_frames": 0, "upload_bytes": 0}
+    with trace.span("verify.validate"):
+        with trace.span("verify.decode", timings, "decode_s"):
+            y, _ = audio.read(out_path)   # decoded once, reused by every check
+            x, sr = audio.read(in_path)
 
-    eng = check_engineering(in_path, out_path, y=y)
-    results["checks"]["engineering"] = eng
-    if not (eng["sr_match"] and eng["ch_match"] and eng["frames_match"]
-            and eng["peak_safe"]):
-        results["pass"] = False
+        with trace.span("verify.gate", timings, "gate_s"):
+            eng = check_engineering(in_path, out_path, y=y)
+            results["checks"]["engineering"] = eng
+            if not (eng["sr_match"] and eng["ch_match"]
+                    and eng["frames_match"] and eng["peak_safe"]):
+                results["pass"] = False
 
-    csvd = read_state_csv(state_csv)
-    csv_states = list(csvd["state"])
-    sim_states, sim_levels = simulate_gate(
-        x, sr, n_fft, hop, threshold, hyst_db, up_delay_ms, device=dev)
-    cmp = compare_gate_states(csv_states, sim_states, sim_levels,
-                              csvd["level_dbfs"])
-    cmp["pass"] = cmp["mismatch_rate"] < 0.01 and cmp["level_max_diff"] < 0.1
-    results["checks"]["gate"] = cmp
-    if not cmp["pass"]:
-        results["pass"] = False
+            csvd = read_state_csv(state_csv)
+            csv_states = list(csvd["state"])
+            sim_states, sim_levels = simulate_gate(
+                x, sr, n_fft, hop, threshold, hyst_db, up_delay_ms,
+                device=dev, counters=counters)
+            cmp = compare_gate_states(csv_states, sim_states, sim_levels,
+                                      csvd["level_dbfs"])
+            cmp["pass"] = (cmp["mismatch_rate"] < 0.01
+                           and cmp["level_max_diff"] < 0.1)
+            results["checks"]["gate"] = cmp
+            if not cmp["pass"]:
+                results["pass"] = False
 
-    stats = analyze_gate_stats(csv_states)
-    stats["c2_ratio_ok"] = 0.05 <= stats.get("c2_ratio", 0) <= 0.95
-    stats["jitter_ok"] = stats.get("short_run_ratio", 0) < 0.30
-    results["checks"]["gate_stats"] = stats  # WARN-only in the reference
-    t2 = time.perf_counter()
+            stats = analyze_gate_stats(csv_states)
+            stats["c2_ratio_ok"] = 0.05 <= stats.get("c2_ratio", 0) <= 0.95
+            stats["jitter_ok"] = stats.get("short_run_ratio", 0) < 0.30
+            results["checks"]["gate_stats"] = stats  # WARN-only in the ref
 
-    freqs, c1_db, c2_db, n1, n2 = conditional_spectrum(
-        x, y, sr, csv_states, n_fft, hop, device=dev)
-    c1_theory = dsp.build_tilt_gain_db(freqs, fc, slope, c1_low, c1_high)
-    c2_theory = dsp.build_tilt_gain_db(freqs, fc, slope, c2_low, c2_high)
-    c1_rmse = [spectrum_rmse(c1_db, c1_theory, freqs, lo, hi)
-               for _, lo, hi in BANDS]
-    c2_rmse = [spectrum_rmse(c2_db, c2_theory, freqs, lo, hi)
-               for _, lo, hi in BANDS]
-    spectrum_ok = max(c1_rmse + c2_rmse) < 1.5
-    results["checks"]["spectrum"] = dict(
-        c1_rmse=c1_rmse, c2_rmse=c2_rmse, c1_frames=n1, c2_frames=n2,
-        **{"pass": spectrum_ok})
-    if not spectrum_ok:
-        results["pass"] = False
-    t3 = time.perf_counter()
+        with trace.span("verify.spectrum", timings, "spectrum_s"):
+            freqs, c1_db, c2_db, n1, n2 = conditional_spectrum(
+                x, y, sr, csv_states, n_fft, hop, device=dev,
+                counters=counters)
+            c1_theory = dsp.build_tilt_gain_db(freqs, fc, slope, c1_low,
+                                               c1_high)
+            c2_theory = dsp.build_tilt_gain_db(freqs, fc, slope, c2_low,
+                                               c2_high)
+            c1_rmse = [spectrum_rmse(c1_db, c1_theory, freqs, lo, hi)
+                       for _, lo, hi in BANDS]
+            c2_rmse = [spectrum_rmse(c2_db, c2_theory, freqs, lo, hi)
+                       for _, lo, hi in BANDS]
+            spectrum_ok = max(c1_rmse + c2_rmse) < 1.5
+            results["checks"]["spectrum"] = dict(
+                c1_rmse=c1_rmse, c2_rmse=c2_rmse, c1_frames=n1, c2_frames=n2,
+                **{"pass": spectrum_ok})
+            if not spectrum_ok:
+                results["pass"] = False
 
-    if out_csv:
-        write_spectrum_csv(out_csv, freqs, c1_db, c1_theory, c2_db,
-                           c2_theory)
-    if out_png:
-        _plot(out_png, freqs, c1_db, c1_theory, c2_db, c2_theory,
-              n1, n2, fc)
-    results["timings"] = dict(decode_s=t1 - t0, gate_s=t2 - t1,
-                              spectrum_s=t3 - t2,
-                              artifacts_s=time.perf_counter() - t3)
+        with trace.span("verify.artifacts", timings, "artifacts_s"):
+            if out_csv:
+                write_spectrum_csv(out_csv, freqs, c1_db, c1_theory, c2_db,
+                                   c2_theory)
+            if out_png:
+                _plot(out_png, freqs, c1_db, c1_theory, c2_db, c2_theory,
+                      n1, n2, fc)
+    results["timings"] = timings
+    results["counters"] = counters
     return results
 
 

@@ -8,21 +8,27 @@ Unlike the Layer-1 validator this tool needs no state CSV: it simulates
 the gate itself from the input audio (ref :107-162,560-588). The Tilt
 Index frames both signals on the device, a block of frames at a time;
 its statistics (np.std is the population one) stay numpy on the host.
+
+verify() times its stages with utils/trace.py spans as validate() does
+(verify.verify15 around the call; verify.decode, verify.gate,
+verify.spectrum, verify.tilt, verify.artifacts inside it, with
+validate_layer1's children) into results["timings"], and counts
+spectrum_frames and upload_bytes into results["counters"].
 """
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
 
 from tomatis_tpu_torch.io import audio
 from tomatis_tpu_torch.ops import dsp, stft
+from tomatis_tpu_torch.utils import trace
 from tomatis_tpu_torch.utils.device import resolve_device
 from tomatis_tpu_torch.verify import validate_layer1 as _l1
 from tomatis_tpu_torch.verify.validate_layer1 import (analyze_gate_stats,
                                                       conditional_spectrum,
                                                       simulate_gate,
+                                                      to_device,
                                                       write_spectrum_csv)
 
 
@@ -67,12 +73,13 @@ def compute_spectrum_metrics(freqs, c1_db, c2_db, c1_theory, c2_theory,
 
 
 def _frame_tilt_index(x: torch.Tensor, n_fft: int, hop: int, n_frames: int,
-                      sr: int, block: int = 4096):
+                      sr: int, block: int = 4096,
+                      counters: dict | None = None):
     """Per-frame Tilt Index and 200-1000 Hz energy of a device signal
     [S, C], frames at 0, hop, ...; `block` frames at a time."""
     dev = x.device
-    win = torch.from_numpy(stft.hann_symmetric(n_fft)).to(dev)
-    freqs = torch.from_numpy(stft.rfft_freqs(n_fft, sr)).to(dev)
+    win = to_device(stft.hann_symmetric(n_fft), dev, counters)
+    freqs = to_device(stft.rfft_freqs(n_fft, sr), dev, counters)
     lo = (freqs >= 200) & (freqs <= 1000)
     hi = (freqs >= 2000) & (freqs <= 8000)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -88,7 +95,8 @@ def _frame_tilt_index(x: torch.Tensor, n_fft: int, hop: int, n_frames: int,
     return torch.cat(ti).cpu().numpy(), torch.cat(e_lo).cpu().numpy()
 
 
-def compute_tilt_index(x, y, sr, states, n_fft, hop, device="cuda") -> dict:
+def compute_tilt_index(x, y, sr, states, n_fft, hop, device="cuda",
+                       counters: dict | None = None) -> dict:
     """Per-frame TI of input/output, split by state (ref :371-441).
     Frames with E_lo <= EPS are dropped, as in the reference."""
     dev = resolve_device(device)
@@ -106,11 +114,12 @@ def compute_tilt_index(x, y, sr, states, n_fft, hop, device="cuda") -> dict:
         return dict(input=z, output=z, c1=z, c2=z)
 
     def upload(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+        return to_device(np.asarray(a, np.float32), dev, counters)
 
-    ti_x, elo_x = _frame_tilt_index(upload(x[off:]), n_fft, hop, n_frames, sr)
+    ti_x, elo_x = _frame_tilt_index(upload(x[off:]), n_fft, hop, n_frames, sr,
+                                    counters=counters)
     ti_y, elo_y = _frame_tilt_index(upload(y[off:len(x)]), n_fft, hop,
-                                    n_frames, sr)
+                                    n_frames, sr, counters=counters)
     st = np.asarray(states[:n_frames])
     ok_x = elo_x > dsp.EPS
     ok_y = elo_y > dsp.EPS
@@ -141,81 +150,94 @@ def verify(in_path, out_path, gate_ui=50.0, gate_scale=1.0,
            out_prefix="verify_15db", device="cuda") -> dict:
     """The A-D audit; results['timings'] holds the decode, the gate
     recomputation, the conditional spectrum, the Tilt Index and the
-    artifacts (seconds)."""
+    artifacts (seconds, the sums of their spans), results['counters']
+    spectrum_frames and upload_bytes."""
     dev = resolve_device(device)
     gain_limit = abs(c1_low)
     threshold = gate_scale * gate_ui + gate_offset
     results = {"pass": True, "checks": {}, "threshold_dbfs": threshold,
                "platform_freqs": dsp.tilt_platform_freqs(
                    fc, slope, c1_low, c1_high)}
-    t0 = time.perf_counter()
-    y, _ = audio.read(out_path)   # decoded once, reused by every check
-    x, sr = audio.read(in_path)
-    t1 = time.perf_counter()
+    timings = {}
+    counters = {"spectrum_frames": 0, "upload_bytes": 0}
+    with trace.span("verify.verify15"):
+        with trace.span("verify.decode", timings, "decode_s"):
+            y, _ = audio.read(out_path)   # decoded once, reused by every check
+            x, sr = audio.read(in_path)
 
-    eng = check_engineering(in_path, out_path, y=y)
-    eng_pass = (eng["sr_match"] and eng["ch_match"] and eng["frames_match"]
-                and eng["peak_safe"] and eng["dc_safe"])
-    results["checks"]["engineering"] = dict(eng, **{"pass": eng_pass})
-    if not eng_pass:
-        results["pass"] = False
+        with trace.span("verify.gate", timings, "gate_s"):
+            eng = check_engineering(in_path, out_path, y=y)
+            eng_pass = (eng["sr_match"] and eng["ch_match"]
+                        and eng["frames_match"] and eng["peak_safe"]
+                        and eng["dc_safe"])
+            results["checks"]["engineering"] = dict(eng,
+                                                    **{"pass": eng_pass})
+            if not eng_pass:
+                results["pass"] = False
 
-    states, levels = simulate_gate(x, sr, n_fft, hop, threshold, hyst_db,
-                                   up_delay_ms, device=dev)
-    stats = analyze_gate_stats(states)
-    stats["c2_ratio_ok"] = 0.05 <= stats.get("c2_ratio", 0) <= 0.95
-    stats["jitter_ok"] = stats.get("short_run_ratio", 0) < 0.30
-    # console/report extras of the reference audit (ref :568-577)
-    duration_min = len(x) / sr / 60.0
-    stats["duration_min"] = duration_min
-    stats["switches_per_min"] = (stats.get("switch_count", 0) / duration_min
-                                 if duration_min > 0 else 0.0)
-    st_arr = np.asarray(states)
-    lv_arr = np.asarray(levels)
-    for name in ("C1", "C2"):
-        sel = lv_arr[st_arr == name] if len(lv_arr) else lv_arr
-        stats[f"{name.lower()}_level_mean"] = (
-            float(np.mean(sel)) if len(sel) else 0.0)
-    results["checks"]["gate_stats"] = stats  # WARN-only
-    t2 = time.perf_counter()
+            states, levels = simulate_gate(x, sr, n_fft, hop, threshold,
+                                           hyst_db, up_delay_ms, device=dev,
+                                           counters=counters)
+            stats = analyze_gate_stats(states)
+            stats["c2_ratio_ok"] = 0.05 <= stats.get("c2_ratio", 0) <= 0.95
+            stats["jitter_ok"] = stats.get("short_run_ratio", 0) < 0.30
+            # console/report extras of the reference audit (ref :568-577)
+            duration_min = len(x) / sr / 60.0
+            stats["duration_min"] = duration_min
+            stats["switches_per_min"] = (
+                stats.get("switch_count", 0) / duration_min
+                if duration_min > 0 else 0.0)
+            st_arr = np.asarray(states)
+            lv_arr = np.asarray(levels)
+            for name in ("C1", "C2"):
+                sel = lv_arr[st_arr == name] if len(lv_arr) else lv_arr
+                stats[f"{name.lower()}_level_mean"] = (
+                    float(np.mean(sel)) if len(sel) else 0.0)
+            results["checks"]["gate_stats"] = stats  # WARN-only
 
-    freqs, c1_db, c2_db, n1, n2 = conditional_spectrum(
-        x, y, sr, states, n_fft, hop, device=dev)
-    c1_theory = dsp.build_tilt_gain_db(freqs, fc, slope, c1_low, c1_high)
-    c2_theory = dsp.build_tilt_gain_db(freqs, fc, slope, c2_low, c2_high)
-    metrics = compute_spectrum_metrics(freqs, c1_db, c2_db, c1_theory,
-                                       c2_theory, fc, gain_limit)
-    rmse_ok = (metrics.get("c1_rmse", 99) < 1.5
-               and metrics.get("c2_rmse", 99) < 1.5)
-    fc_ok = (metrics.get("c1_fc_error", 99) < 0.5
-             and metrics.get("c2_fc_error", 99) < 0.5)
-    platform_ok = all(metrics.get(k, 99) < 3.0 for k in (
-        "c1_low_platform_error", "c2_low_platform_error",
-        "c1_high_platform_error", "c2_high_platform_error"))
-    spectrum_pass = rmse_ok and fc_ok and platform_ok
-    results["checks"]["spectrum"] = dict(
-        metrics, c1_frames=n1, c2_frames=n2, rmse_ok=rmse_ok, fc_ok=fc_ok,
-        platform_ok=platform_ok, **{"pass": spectrum_pass})
-    if not spectrum_pass:
-        results["pass"] = False
-    t3 = time.perf_counter()
+        with trace.span("verify.spectrum", timings, "spectrum_s"):
+            freqs, c1_db, c2_db, n1, n2 = conditional_spectrum(
+                x, y, sr, states, n_fft, hop, device=dev, counters=counters)
+            c1_theory = dsp.build_tilt_gain_db(freqs, fc, slope, c1_low,
+                                               c1_high)
+            c2_theory = dsp.build_tilt_gain_db(freqs, fc, slope, c2_low,
+                                               c2_high)
+            metrics = compute_spectrum_metrics(freqs, c1_db, c2_db,
+                                               c1_theory, c2_theory, fc,
+                                               gain_limit)
+            rmse_ok = (metrics.get("c1_rmse", 99) < 1.5
+                       and metrics.get("c2_rmse", 99) < 1.5)
+            fc_ok = (metrics.get("c1_fc_error", 99) < 0.5
+                     and metrics.get("c2_fc_error", 99) < 0.5)
+            platform_ok = all(metrics.get(k, 99) < 3.0 for k in (
+                "c1_low_platform_error", "c2_low_platform_error",
+                "c1_high_platform_error", "c2_high_platform_error"))
+            spectrum_pass = rmse_ok and fc_ok and platform_ok
+            results["checks"]["spectrum"] = dict(
+                metrics, c1_frames=n1, c2_frames=n2, rmse_ok=rmse_ok,
+                fc_ok=fc_ok, platform_ok=platform_ok,
+                **{"pass": spectrum_pass})
+            if not spectrum_pass:
+                results["pass"] = False
 
-    ti = compute_tilt_index(x, y, sr, states, n_fft, hop, device=dev)
-    ti_stats = analyze_tilt_index(ti)
-    ti_stats["effect_ok"] = ti_stats.get("ti_effect", 0) > 5.0  # WARN-only
-    results["checks"]["tilt_index"] = ti_stats
-    t4 = time.perf_counter()
+        with trace.span("verify.tilt", timings, "tilt_s"):
+            ti = compute_tilt_index(x, y, sr, states, n_fft, hop, device=dev,
+                                    counters=counters)
+            ti_stats = analyze_tilt_index(ti)
+            ti_stats["effect_ok"] = ti_stats.get("ti_effect", 0) > 5.0
+            results["checks"]["tilt_index"] = ti_stats  # WARN-only
 
-    if out_prefix:
-        _write_report(f"{out_prefix}_report.txt", results)
-        write_spectrum_csv(f"{out_prefix}_spectrum.csv", freqs, c1_db,
-                           c1_theory, c2_db, c2_theory)
-        plot_spectrum(f"{out_prefix}_spectrum.png", freqs, c1_db, c2_db,
-                      c1_theory, c2_theory, fc, gain_limit, n1, n2)
-        _plot_ti(f"{out_prefix}_tilt_index.png", ti)
-    results["timings"] = dict(decode_s=t1 - t0, gate_s=t2 - t1,
-                              spectrum_s=t3 - t2, tilt_s=t4 - t3,
-                              artifacts_s=time.perf_counter() - t4)
+        with trace.span("verify.artifacts", timings, "artifacts_s"):
+            if out_prefix:
+                _write_report(f"{out_prefix}_report.txt", results)
+                write_spectrum_csv(f"{out_prefix}_spectrum.csv", freqs,
+                                   c1_db, c1_theory, c2_db, c2_theory)
+                plot_spectrum(f"{out_prefix}_spectrum.png", freqs, c1_db,
+                              c2_db, c1_theory, c2_theory, fc, gain_limit,
+                              n1, n2)
+                _plot_ti(f"{out_prefix}_tilt_index.png", ti)
+    results["timings"] = timings
+    results["counters"] = counters
     return results
 
 
